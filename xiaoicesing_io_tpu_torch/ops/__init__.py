@@ -1,0 +1,1 @@
+"""Sequence ops and the CUDA kernels of the port."""
