@@ -7,31 +7,43 @@ Phases, each printed on its own line:
   1. the card (name and power limit, from nvidia-smi);
   2. the build of every CUDA kernel from ``xiaoicesing_io_tpu_torch/csrc``;
   3. K1 ``lynx_conv_module`` against its plain PyTorch version at the
-     main-path shape (B=4, T=2048, dim 1024, inner 2048, k 31; bf16);
+     LYNXNet path's shape (B=4, T=2048, dim 1024, inner 2048, k 31; bf16);
   4. K2 ``fused_resblock_stage`` against its plain version at vocoder stages 0
      and 1 of the same batch (L=256 at T*8 rows, L=128 at T*64 rows; bf16);
-  5. one sample ``.ds``, every segment, through the port's
-     ``DiffSingerAcousticInfer.run_inference`` and NSF-HiFiGAN vocoder at the
-     full width of ``configs/acoustic.json`` with random weights (the main
-     path; the launch counters are zeroed just before it and read just
-     after); the wav must be finite and of the right length, and both
-     kernels must have been launched.  Then one segment through the kernel
-     path and through the f32 module path: mel and wav must agree;
-  6. a batched timing at B=4, T=2048, 20 Euler steps.
+  5. K4 ``wavenet_block`` against its plain version at the WaveNet path's
+     shape (B=4, T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8;
+  6. the LYNXNet + rectified-flow configuration (``configs/acoustic.json``)
+     at full width with random weights: one sample ``.ds``, every segment,
+     through the port's ``DiffSingerAcousticInfer.run_inference`` and the
+     NSF-HiFiGAN vocoder (the launch counters are zeroed just before it and
+     read just after); the wav must be finite and of the right length, K1
+     must have launched once per layer per step per segment (6 x 20 x 10)
+     and K2 at least once.  Then one segment through the kernel
+     path and through the f32 module path: mel and wav must agree.  Then a
+     batched timing at B=4, T=2048, 20 Euler steps;
+  7. the WaveNet + DDPM configuration (the same file with a 512 x 20 WaveNet,
+     dilation cycle 4, and a linear 1000-step DDPM core, K_step 400, DDIM at
+     speedup 10: 40 steps), at full width with random weights saved under the
+     reference names (``diffusion.denoise_fn.*`` and the schedule buffers):
+     the same ``.ds`` run, where K4 must launch 20 x 40 times per segment
+     and K2 at least once, the same kernel-path vs f32 check, and a
+     batched timing at B=4, T=2048, 40 DDIM steps.
 
-Tolerance of a kernel against its plain version (same inputs, both bf16
-products with f32 accumulation, TF32 off): max |kernel - plain| <=
-0.02 * max |plain| and correlation > 0.9999.  The two differ by f32
-summation order and by the bf16 rounding of intermediates that the order
-flips, which is about one bf16 ulp (0.4 %) on a few elements.  The bf16
-kernel path against the f32 path compounds bf16 rounding over 6 layers and
-20 steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
+Tolerance of a kernel against its plain version (same inputs, bf16 products,
+TF32 off): max |kernel - plain| <= 0.02 * max |plain| and correlation >
+0.9999.  K1 and K2 differ from their plain versions by f32 summation order
+and the bf16 rounding of intermediates that the order flips, about one bf16
+ulp (0.4 %) on a few elements; K4's plain version is the unfused bf16 chain,
+which also rounds the conv output to bf16 before the gating.  The bf16 kernel
+path against the f32 path compounds bf16 rounding over the layers and
+steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
-``bound_ms`` at the phase 3/4 shapes; K2's are the sum of its two stage
-calls; ``launches`` are wrapper calls in phase 5).  The last line is
-``{"ok": true, "device": {...}}``.
+``bound_ms`` at the phase 3-5 shapes; K2's are the sum of its two stage
+calls, K4's the mean over its four dilations; ``launches`` are wrapper calls
+in the ``.ds`` run of the configuration that runs the kernel: phase 6 for K1
+and K2, phase 7 for K4).  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -52,7 +64,7 @@ HBM_BYTES = 3.35e12   # H100 SXM HBM3 bandwidth
 TOL_REL = 0.02
 TOL_CORR = 0.9999
 
-B_TIME, T_TIME, STEPS_TIME = 4, 2048, 20
+B_TIME, T_TIME = 4, 2048
 
 
 def log(msg: str) -> None:
@@ -221,21 +233,87 @@ def check_k2(reps: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the main path: .ds -> wav through the port's runner
+# K4
+# ---------------------------------------------------------------------------
+
+K4_DILATIONS = (1, 2, 4, 8)
+
+
+def k4_inputs(B: int, T: int, C: int = 512, seed: int = 0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    y = rn(B, T, C, std=0.5).to(torch.bfloat16)
+    cond = rn(B, T, 2 * C, std=0.5).to(torch.bfloat16)
+    params = (rn(3, C, 2 * C, std=(3 * C) ** -0.5), rn(2 * C, std=0.05),
+              rn(C, 2 * C, std=C ** -0.5), rn(2 * C, std=0.05))
+    return y, cond, params
+
+
+def k4_bound(B, T, C=512):
+    rows = B * T
+    mm = 4 * 2 * rows * C * 2 * C
+    nbytes = rows * C * 2 + 2 * rows * 2 * C * 2 + 4 * C * 2 * C * 2 + 2 * 2 * C * 4
+    return bound_ms(nbytes, mm)
+
+
+def check_k4(reps: int = 20) -> dict:
+    import torch
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
+
+    B, T = B_TIME, T_TIME
+    y, cond, params = k4_inputs(B, T)
+    weights = K4.prepare_weights(*params)
+    bms, by = k4_bound(B, T)
+    errs, times, plain_times = [], [], []
+    for d in K4_DILATIONS:
+        got = K4.wavenet_block(y, cond, weights, dilation=d)
+        torch.cuda.synchronize()
+        ref = K4.wavenet_block_plain(y, cond, *params, dilation=d)
+        errs.append(compare(f"K4 wavenet_block [B={B},T={T},C=512,d={d}]", got, ref))
+        del got, ref
+        times.append(cuda_ms(lambda: K4.wavenet_block(y, cond, weights, dilation=d), reps))
+        plain_times.append(cuda_ms(lambda: K4.wavenet_block_plain(y, cond, *params, dilation=d),
+                                   reps))
+        log(f"[K4 d={d}] ms={times[-1]:.4f} plain_ms={plain_times[-1]:.4f} bound_ms={bms:.4f} "
+            f"({by}) share_of_bound={bms / times[-1]:.3f}")
+    return {"max_abs_err": max(errs), "ms": sum(times) / len(times),
+            "plain_ms": sum(plain_times) / len(plain_times), "bound_ms": bms, "bound_by": by}
+
+
+# ---------------------------------------------------------------------------
+# the main path: .ds -> wav through the port's runner, for each configuration
 # ---------------------------------------------------------------------------
 
 SAMPLE = "samples/04_仙瑶.ds"
-MEL_TOL_REL = 0.05     # bf16 kernel path vs the f32 module path, 20 sampler steps
+MEL_TOL_REL = 0.05     # bf16 kernel path vs the f32 module path
 MEL_TOL_CORR = 0.999
 WAV_TOL_CORR = 0.99    # bf16 vocoder (kernel stages) vs the f32 vocoder
 
+# the WaveNet + DDPM acoustic configuration, over configs/acoustic.json
+WAVENET_DDPM = dict(
+    backbone_type="wavenet",
+    backbone_args={"num_channels": 512, "num_layers": 20, "dilation_cycle_length": 4},
+    diffusion_type="ddpm", schedule_type="linear", timesteps=1000, K_step=400,
+    K_step_infer=400, diff_accelerator="ddim", diff_speedup=10,
+)
 
-def make_experiment(work: Path, seed: int = 0):
+
+def make_experiment(work: Path, overrides=None, seed: int = 0):
     """A reference-format acoustic checkpoint and NSF-HiFiGAN ``model.ckpt``
-    at the full width of ``configs/acoustic.json``, with random weights."""
+    at the full width of ``configs/acoustic.json`` (with ``overrides``), with
+    random weights.  A DDPM checkpoint also carries the schedule buffers the
+    reference core registers."""
     import torch
 
     from xiaoicesing_io_tpu_torch.config import acoustic_defaults
+    from xiaoicesing_io_tpu_torch.models.diffusion.core import GaussianDiffusion
+    from xiaoicesing_io_tpu_torch.models.toplevel import reference_core_buffers
     from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
         Generator, NsfHifiganConfig,
     )
@@ -244,20 +322,24 @@ def make_experiment(work: Path, seed: int = 0):
     from xiaoicesing_io_tpu_torch.utils.text_encoder import TokenTextEncoder
 
     cfg = acoustic_defaults()
+    cfg.update(overrides or {})
     cfg.update(work_dir=str(work / "exp"), vocoder_ckpt=str(work / "vocoder" / "model.ckpt"),
                dictionary=str(ROOT / cfg["dictionary"]))
     vocab = TokenTextEncoder(PhonemeDictionary.load(cfg["dictionary"]).phoneme_list).vocab_size
     torch.manual_seed(seed)
-    model, _, _ = build_acoustic(cfg, vocab)
+    model, core, _ = build_acoustic(cfg, vocab)
     with torch.no_grad():
         # the zero-initialised output projection and the 1e-6 ConvNeXt layer
         # scales would hide the denoiser and the aux blocks
         model.backbone.output_projection.weight.normal_(0.0, 0.02)
         for block in model.aux_decoder.decoder.conv:
             block.gamma.normal_(0.0, 0.1)
+    state = {f"model.{k}": v for k, v in model.state_dict().items()}
+    if isinstance(core, GaussianDiffusion):
+        state.update({f"model.diffusion.{k}": v
+                      for k, v in reference_core_buffers(core.schedule).items()})
     (work / "exp").mkdir(parents=True)
-    torch.save({"category": "acoustic",
-                "state_dict": {f"model.{k}": v for k, v in model.state_dict().items()}},
+    torch.save({"category": "acoustic", "state_dict": state},
                work / "exp" / "model_ckpt_steps_0.ckpt")
     vcfg = NsfHifiganConfig()
     (work / "vocoder").mkdir()
@@ -282,13 +364,14 @@ def corr(a, b) -> float:
 
 def drive_main_path(runner, out_dir: Path) -> dict:
     """Every segment of one sample ``.ds`` through ``run_inference``; returns
-    the kernels' launch counts of that run."""
+    the kernels' launch counts of that run and its number of segments."""
     import numpy as np
     from scipy.io import wavfile
 
     from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
     from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
     params = load_ds(ROOT / SAMPLE)
     vocode = runner.run_vocoder
@@ -302,11 +385,12 @@ def drive_main_path(runner, out_dir: Path) -> dict:
         return wav
 
     runner.run_vocoder = run_vocoder
-    K1.launches = K2.launches = 0
+    K1.launches = K2.launches = K4.launches = 0
     t0 = time.perf_counter()
     (path,) = runner.run_inference(params, out_dir=out_dir, title="smoke", seed=0)
     seconds = time.perf_counter() - t0
-    launches = {"lynx_conv_module": K1.launches, "fused_resblock_stage": K2.launches}
+    launches = {"lynx_conv_module": K1.launches, "fused_resblock_stage": K2.launches,
+                "wavenet_block": K4.launches}
     runner.run_vocoder = vocode
 
     hop, sr = runner.cfg["hop_size"], runner.cfg["audio_sample_rate"]
@@ -326,10 +410,7 @@ def drive_main_path(runner, out_dir: Path) -> dict:
     log(f"[ds] {SAMPLE}: {len(params)} segments, {sum(f for f, _ in segments)} frames -> "
         f"{wav.shape[0]} samples ({wav.shape[0] / sr:.2f} s) at {rate} Hz, finite, "
         f"each segment frames*{hop} samples; {seconds:.2f}s host; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path did not launch {name}")
-    return launches
+    return launches, len(params)
 
 
 def check_against_f32(runner, seed: int = 0) -> None:
@@ -372,15 +453,15 @@ def check_against_f32(runner, seed: int = 0) -> None:
 # batched timing
 # ---------------------------------------------------------------------------
 
-def batched_timing(runner, name_limit: str, k1: dict, k2: dict, reps: int = 3) -> dict:
-    """B=4 sequences of T=2048 frames, 20 Euler steps, then the vocoder; the
-    line also carries the kernels' phase 3/4 times against their bounds."""
+def batched_timing(runner, name_limit: str, label: str, steps: int, kernels: dict,
+                   reps: int = 3) -> dict:
+    """B=4 sequences of T=2048 frames through ``steps`` sampler steps, then
+    the vocoder; the line also carries the kernels' phase 3-5 times against
+    their bounds."""
     import torch
 
     cfg = runner.cfg
     B, T = B_TIME, T_TIME
-    if cfg["sampling_steps"] != STEPS_TIME or cfg["sampling_algorithm"] != "euler":
-        raise AssertionError("the timing expects the default 20 Euler steps")
     g = torch.Generator(device="cuda").manual_seed(0)
     n_ph = T // 8
     tokens = torch.randint(1, runner.ph_encoder.vocab_size, (B, n_ph), generator=g,
@@ -406,16 +487,62 @@ def batched_timing(runner, name_limit: str, k1: dict, k2: dict, reps: int = 3) -
     audio_s = B * T * cfg["hop_size"] / cfg["audio_sample_rate"]
     out = {
         "cond_aux_ms": mean["cond_aux"] * 1e3,
-        "sampler_ms_per_step": mean["sampler"] * 1e3 / STEPS_TIME,
+        "sampler_ms_per_step": mean["sampler"] * 1e3 / steps,
         "vocoder_ms": mean["vocoder"] * 1e3,
         "audio_s_per_s": audio_s / total,
     }
-    log(f"[timing] card={name_limit} B={B} T={T} steps={STEPS_TIME} (mean of {reps}): "
+    log(f"[timing {label}] card={name_limit} B={B} T={T} steps={steps} (mean of {reps}): "
         + " ".join(f"{k}={v:.4f}" for k, v in out.items())
         + f" sampler_ms={mean['sampler'] * 1e3:.4f} total_ms={total * 1e3:.4f} "
-          f"audio_s={audio_s:.3f} K1_ms={k1['ms']:.4f} K1_bound_ms={k1['bound_ms']:.4f} "
-          f"K2_ms={k2['ms']:.4f} K2_bound_ms={k2['bound_ms']:.4f}")
+          f"audio_s={audio_s:.3f} "
+        + " ".join(f"{k}_ms={v['ms']:.4f} {k}_bound_ms={v['bound_ms']:.4f}"
+                   for k, v in kernels.items()))
+    for k, v in out.items():
+        log(f"[timing {label}] {k}={v:.4f}")
     return out
+
+
+def run_configuration(label: str, work: Path, overrides, name_limit: str,
+                      kernels: dict) -> dict:
+    """Phases 6 and 7: a random full-width experiment, the ``.ds`` run, the
+    kernel-path vs f32 check and the batched timing of one configuration;
+    returns the ``.ds`` run's launch counts.  The denoiser's kernel (K1 for
+    LYNXNet, K4 for WaveNet) must launch once per layer per sampler step per
+    segment, K2 at least once."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
+    from xiaoicesing_io_tpu_torch.models.diffusion.core import GaussianDiffusion
+
+    t0 = time.perf_counter()
+    cfg = make_experiment(work, overrides)
+    runner = DiffSingerAcousticInfer(cfg, device="cuda")
+    log(f"[setup {label}] random full-width acoustic model and vocoder saved and loaded in "
+        f"{time.perf_counter() - t0:.1f}s; runner on {runner.device}, "
+        f"kernels {'on' if runner.use_kernels else 'off'}")
+    if not runner.use_kernels:
+        raise AssertionError("the runner does not take the kernel path")
+    if isinstance(runner.core, GaussianDiffusion):
+        if cfg["diff_accelerator"] != "ddim":
+            raise AssertionError("the launch count and the timing assume DDIM")
+        steps = len(range(0, min(cfg["K_step_infer"], runner.core.k_step), cfg["diff_speedup"]))
+    else:
+        if cfg["sampling_algorithm"] != "euler":
+            raise AssertionError("the launch count and the timing assume Euler")
+        steps = cfg["sampling_steps"]
+    launches, segments = drive_main_path(runner, work / "out")
+    denoiser = "wavenet_block" if runner.backbone_type == "wavenet" else "lynx_conv_module"
+    want = len(runner.model.backbone.residual_layers) * steps * segments
+    log(f"[ds {label}] {denoiser}: {launches[denoiser]} launches, expected {want} "
+        f"(layers x {steps} steps x {segments} segments); fused_resblock_stage: "
+        f"{launches['fused_resblock_stage']}")
+    if launches[denoiser] != want or launches["fused_resblock_stage"] <= 0:
+        raise AssertionError(f"the {label} path did not launch its kernels as expected")
+    check_against_f32(runner)
+    batched_timing(runner, name_limit, label, steps, kernels)
+    del runner
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv) -> int:
@@ -450,26 +577,18 @@ def main(argv) -> int:
 
     k1 = check_k1()
     k2 = check_k2()
+    k4 = check_k4()
     if "--kernels-only" in argv:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
         return 0
 
-    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
-
     work = ROOT / ".work" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        t0 = time.perf_counter()
-        cfg = make_experiment(work)
-        runner = DiffSingerAcousticInfer(cfg, device="cuda")
-        log(f"[setup] random full-width acoustic model and vocoder saved and loaded in "
-            f"{time.perf_counter() - t0:.1f}s; runner on {runner.device}, "
-            f"kernels {'on' if runner.use_kernels else 'off'}")
-        if not runner.use_kernels:
-            raise AssertionError("the runner does not take the kernel path")
-        launches = drive_main_path(runner, work / "out")
-        check_against_f32(runner)
-        batched_timing(runner, name_limit, k1, k2)
+        lynx = run_configuration("lynx_reflow", work / "lynx", None, name_limit,
+                                 {"K1": k1, "K2": k2})
+        wavenet = run_configuration("wavenet_ddpm", work / "wavenet", WAVENET_DDPM, name_limit,
+                                    {"K4": k4, "K2": k2})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -477,11 +596,15 @@ def main(argv) -> int:
         dict(name="lynx_conv_module", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/lynx_conv.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv.py:116",
-             launches=launches["lynx_conv_module"], library_ms=None, **k1),
+             launches=lynx["lynx_conv_module"], library_ms=None, **k1),
         dict(name="fused_resblock_stage", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_stage.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_stage.py:120",
-             launches=launches["fused_resblock_stage"], library_ms=None, **k2),
+             launches=lynx["fused_resblock_stage"], library_ms=None, **k2),
+        dict(name="wavenet_block", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
+             launches=wavenet["wavenet_block"], library_ms=None, **k4),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,7 @@ import torch
 
 from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +171,75 @@ def test_lynx_denoiser_apply_on_card_matches_cpu(cuda):
         torch.cuda.synchronize()
     assert K1.launches == before + 2
     _rel_close(got.cpu(), ref, tol=0.05, min_corr=0.999)
+
+
+def _k4_params(rng, C, device):
+    arrays = [0.05 * rng.standard_normal((3, C, 2 * C)), 0.05 * rng.standard_normal(2 * C),
+              0.05 * rng.standard_normal((C, 2 * C)), 0.05 * rng.standard_normal(2 * C)]
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
+
+
+def _k4_acts(rng, B, T, C, device):
+    return [torch.tensor(0.5 * rng.standard_normal(shape), dtype=torch.float32,
+                         device=device).to(torch.bfloat16)
+            for shape in ((B, T, C), (B, T, 2 * C))]
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("C", [192, 256, 512])  # variance predictors' widths, the acoustic one
+def test_wavenet_block_kernel_matches_plain(cuda, C, d):
+    """Two sequences of 300 rows: a partial last row tile, and halos that
+    must not cross from one sequence into the other."""
+    rng = np.random.default_rng(3)
+    y, cond = _k4_acts(rng, 2, 300, C, cuda)
+    params = _k4_params(rng, C, cuda)
+    before = K4.launches
+    got = K4.wavenet_block(y, cond, K4.prepare_weights(*params), dilation=d)
+    torch.cuda.synchronize()
+    assert K4.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 300, 2 * C)
+    _rel_close(got, K4.wavenet_block_plain(y, cond, *params, dilation=d))
+
+
+def test_wavenet_block_raises_instead_of_falling_back(cuda):
+    rng = np.random.default_rng(4)
+    y, cond = _k4_acts(rng, 1, 64, 128, cuda)
+    params = _k4_params(rng, 128, cuda)
+    weights = K4.prepare_weights(*params)
+    before = K4.launches
+    with pytest.raises(TypeError, match="bf16"):
+        K4.wavenet_block(y.float(), cond, weights, dilation=1)
+    with pytest.raises(ValueError, match="prepare_weights"):
+        K4.wavenet_block(y, cond, params, dilation=1)
+    # widths and dilations the kernel does not take
+    for C, d in ((96, 1), (576, 1), (512, 33)):
+        yc, cc = _k4_acts(rng, 1, 64, C, cuda)
+        with pytest.raises(ValueError, match="C % 64"):
+            K4.wavenet_block(yc, cc, K4.prepare_weights(*_k4_params(rng, C, cuda)), dilation=d)
+    assert K4.launches == before
+
+
+def test_wavenet_denoiser_apply_on_card_matches_f32_module(cuda):
+    """The bf16 kernel-path WaveNet apply against the f32 module on the card
+    (TF32 off): bf16 compounded over 8 layers, so corr > 0.999 and 5 % of
+    the scale, the bar of the LYNX apply above."""
+    from xiaoicesing_io_tpu_torch.models.backbones import build_backbone
+    from xiaoicesing_io_tpu_torch.models.backbones.wavenet_cuda import wavenet_denoiser_apply
+
+    torch.manual_seed(0)
+    M, H, C = 32, 64, 256
+    net = build_backbone(M, 1, "wavenet", {"num_channels": C, "num_layers": 8,
+                                           "dilation_cycle_length": 4},
+                         cond_dims=H).eval().to(cuda)
+    with torch.no_grad():
+        net.output_projection.weight.normal_(0.0, 0.05)
+    spec = torch.randn(2, 1, 384, M, device=cuda)
+    step = torch.tensor([30.0, 700.0], device=cuda)
+    cond = torch.randn(2, 384, H, device=cuda)
+    with torch.no_grad():
+        ref = net(spec, step, cond)
+        before = K4.launches
+        got = wavenet_denoiser_apply(net, spec, step, cond)
+        torch.cuda.synchronize()
+    assert K4.launches == before + 8
+    _rel_close(got, ref, tol=0.05, min_corr=0.999)

@@ -6,16 +6,23 @@ f0 resampled to the frame grid), per-segment seeds, 256-frame bucket padding,
 the vocoder, and offset placement with zero fill or crossfade.
 
 The segments are padded to 256-frame buckets exactly as the JAX runner pads
-them: the depthwise convs of LYNXNet and of the ConvNeXt aux decoder reach
-into the padded frames, so the last frames of a segment depend on the padding.
+them: the depthwise convs of LYNXNet and of the ConvNeXt aux decoder and the
+dilated convs of WaveNet reach into the padded frames, so the last frames of
+a segment depend on the padding.
 
-A LYNXNet denoiser with PReLU runs ``lynx_denoiser_apply``: in bf16 with the
-conv-module kernel on the card, whatever its width (the kernel raises for a
-width it does not take), and in f32 with the kernel's plain version on the
-CPU, where it matches the f32 module that the JAX package's CPU runner uses.
+A LYNXNet denoiser with PReLU runs ``lynx_denoiser_apply`` and a WaveNet
+denoiser ``wavenet_denoiser_apply``: in bf16 with the conv-module or the
+residual-block kernel on the card, whatever the width (a kernel raises for a
+width it does not take), and in f32 with the kernels' plain versions on the
+CPU, where they match the f32 modules that the JAX package's CPU runner uses.
+The JAX runner's ``wavenet_use_pallas`` key (a TPU tuning switch) is not
+read: no config key switches a kernel off.  A DDPM core samples from depth
+``K_step_infer`` with ``diff_accelerator`` (DDIM, PNDM, DPM-Solver++, UniPC)
+at speedup ``diff_speedup``, a rectified-flow core with
+``sampling_algorithm`` over ``sampling_steps``.
 
 Not ported yet (``NotImplementedError``): speaker mixes, variance embeddings,
-key-shift (gender) and speed (velocity) inputs, and the DDPM cores.
+and key-shift (gender) and speed (velocity) inputs.
 """
 
 from __future__ import annotations
@@ -29,9 +36,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..compat import get_backbone_type
 from ..models.backbones.lynx_cuda import (
     lynx_cond_projections, lynx_denoiser_apply, lynx_kernel_weights,
 )
+from ..models.backbones.wavenet_cuda import (
+    wavenet_cond_projections, wavenet_denoiser_apply, wavenet_kernel_weights,
+)
+from ..models.diffusion.core import GaussianDiffusion
 from ..models.toplevel import VARIANCE_CHECKLIST, load_acoustic_state_dict
 from ..ops.seq import length_regulator
 from ..training.acoustic import build_acoustic
@@ -85,7 +97,9 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.kernel_weights = None
         if self.use_kernels:
-            self.kernel_weights = lynx_kernel_weights(self.model.backbone, self.compute_dtype)
+            prepare = wavenet_kernel_weights if self.backbone_type == "wavenet" \
+                else lynx_kernel_weights
+            self.kernel_weights = prepare(self.model.backbone, self.compute_dtype)
         self.vocoder = None
         if load_vocoder:
             from ..models.vocoders import get_vocoder_cls
@@ -93,13 +107,19 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
             self.vocoder = get_vocoder_cls(cfg.get("vocoder", "NsfHifiGAN"))(cfg, device=device)
 
     @property
+    def backbone_type(self) -> str:
+        return get_backbone_type(self.cfg)
+
+    @property
     def use_kernels(self) -> bool:
-        """A LYNXNet denoiser with PReLU, the function the conv-module kernel
-        computes, runs ``lynx_denoiser_apply``: the kernel in bf16 on the card,
-        its plain version in f32 on the CPU.  Any other denoiser runs its f32
-        module, as in the JAX runner."""
+        """A WaveNet denoiser, and a LYNXNet denoiser with PReLU (the function
+        the conv-module kernel computes), run their kernel-path apply: the
+        kernel in bf16 on the card, its plain version in f32 on the CPU.  Any
+        other denoiser runs its f32 module, as in the JAX runner."""
+        if self.backbone_type == "wavenet":
+            return True
         bargs = self.cfg.get("backbone_args", {})
-        return (self.cfg.get("backbone_type") == "lynxnet"
+        return (self.backbone_type == "lynxnet"
                 and bargs.get("activation", "PReLU") == "PReLU")
 
     # -- preprocessing --------------------------------------------------------
@@ -141,7 +161,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         drawn from ``generator`` when None.  ``timings``, when given, receives
         host seconds of the condition + aux stage and of the sampler (both
         ended by a device synchronise).  ``_f32_module`` runs the f32
-        ``LYNXNet`` module in place of the kernel path: the reference that
+        denoiser module in place of the kernel path: the reference that
         ``chip_smoke.py`` holds the kernel path against."""
         cfg = self.cfg
         model = self.model
@@ -162,23 +182,38 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         if self.use_kernels and not _f32_module:
             backbone = model.backbone
             cd = self.compute_dtype
-            cond_projs = lynx_cond_projections(backbone, cond, cd)
+            if self.backbone_type == "wavenet":
+                projections, apply = wavenet_cond_projections, wavenet_denoiser_apply
+            else:
+                projections, apply = lynx_cond_projections, lynx_denoiser_apply
+            cond_projs = projections(backbone, cond, cd)
 
-            def velocity_fn(x, t):
-                return lynx_denoiser_apply(backbone, x, t, cond_projs=cond_projs,
-                                           kernel_weights=self.kernel_weights,
-                                           compute_dtype=cd).float()
+            def denoise_fn(x, t):
+                return apply(backbone, x, t, cond_projs=cond_projs,
+                             kernel_weights=self.kernel_weights, compute_dtype=cd).float()
         else:
-            def velocity_fn(x, t):
+            def denoise_fn(x, t):
                 return model.denoise(x, t, cond).float()
 
-        x = self.core.inference(
-            velocity_fn, shape, x_end=x_src,
-            t_start=cfg.get("T_start_infer", self.core.t_start),
-            steps=cfg.get("sampling_steps", 20),
-            algorithm=cfg.get("sampling_algorithm", "euler"),
-            noise=noise, generator=generator, device=self.device,
-        )
+        core = self.core
+        if isinstance(core, GaussianDiffusion):
+            x = core.inference(
+                denoise_fn, shape, x_start=x_src,
+                depth=cfg.get("K_step_infer", core.k_step),
+                speedup=cfg.get("diff_speedup", 10),
+                algorithm=cfg.get("diff_accelerator", "ddim"),
+                solver_order=cfg.get("dpm_solver_order", 2),
+                unipc_variant=cfg.get("unipc_variant", "bh2"),
+                noise=noise, generator=generator, device=self.device,
+            )
+        else:
+            x = core.inference(
+                denoise_fn, shape, x_end=x_src,
+                t_start=cfg.get("T_start_infer", core.t_start),
+                steps=cfg.get("sampling_steps", 20),
+                algorithm=cfg.get("sampling_algorithm", "euler"),
+                noise=noise, generator=generator, device=self.device,
+            )
         mel = self.normalizer.denorm(x) * mask
         if timings is not None:
             sync()

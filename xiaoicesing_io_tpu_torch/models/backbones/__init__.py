@@ -1,10 +1,11 @@
-"""Denoiser backbones.  This slice ports LYNXNet; WaveNet is queued."""
+"""Denoiser backbones: LYNXNet and WaveNet."""
 
 from __future__ import annotations
 
 from .lynxnet import LYNXNet
+from .wavenet import WaveNet
 
-BACKBONES = {"lynxnet": LYNXNet}
+BACKBONES = {"lynxnet": LYNXNet, "wavenet": WaveNet}
 
 
 def build_backbone(out_dims: int, num_feats: int, backbone_type: str, backbone_args: dict,

@@ -1,8 +1,9 @@
-"""Spec normalisation and the rectified-flow core.
+"""Spec normalisation, the DDPM core and the rectified-flow core.
 
 Counterparts of the JAX package's ``models/diffusion/core.py``
-(``SpecNormalizer``, ``RectifiedFlow``).  The DDPM core is not ported yet.
-Model-domain layout: ``[B, F, T, M]``.
+(``SpecNormalizer``, ``GaussianDiffusion``, ``RectifiedFlow``).  The cores
+hold only the schedule and the math; the denoiser is passed in as a
+``denoise_fn(x, t)`` closure.  Model-domain layout: ``[B, F, T, M]``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from . import samplers
+from .schedule import DiffusionSchedule
 
 
 class SpecNormalizer:
@@ -58,6 +60,63 @@ class SpecNormalizer:
         x = x.mean(dim=-1)
         xs = self._clamp([x[:, i] for i in range(self.num_feats)])
         return xs[0] if self.num_feats == 1 else xs
+
+
+@dataclass(frozen=True)
+class GaussianDiffusion:
+    """DDPM core: forward noising and the sampling loops."""
+
+    schedule: DiffusionSchedule
+    timesteps: int = 1000
+    k_step: int = 1000
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward-noise ``x_start`` at integer steps ``t`` ``[B]``."""
+        shape = (-1,) + (1,) * (x_start.ndim - 1)
+
+        def coef(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=x_start.device)[t].reshape(shape)
+
+        return (coef(self.schedule.sqrt_alphas_cumprod) * x_start
+                + coef(self.schedule.sqrt_one_minus_alphas_cumprod) * noise)
+
+    def inference(self, denoise_fn: samplers.DenoiseFn, shape: Tuple[int, ...],
+                  x_start: Optional[torch.Tensor] = None, depth: Optional[int] = None,
+                  speedup: int = 1, algorithm: str = "ddim", solver_order: int = 2,
+                  unipc_variant: str = "bh2", noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+        """Returns model-domain ``x`` ``[B, F, T, M]``.  With ``depth`` below
+        ``timesteps`` the loop starts from ``q_sample(x_start, depth - 1)``
+        (shallow diffusion).  ``noise`` (the start noise) is drawn from
+        ``generator`` unless given; the ancestral sampler (``speedup`` 1)
+        draws its per-step noise from ``generator`` too."""
+        depth = self.k_step if depth is None else depth
+        t_max = min(depth, self.k_step)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        if t_max >= self.timesteps:
+            x = noise
+        elif t_max > 0:
+            assert x_start is not None, "Missing shallow diffusion source."
+            t = torch.full((shape[0],), t_max - 1, dtype=torch.long, device=noise.device)
+            x = self.q_sample(x_start, t, noise)
+        else:
+            assert x_start is not None, "Missing shallow diffusion source."
+            return x_start
+
+        if speedup <= 1:
+            return samplers.sample_ddpm(self.schedule, denoise_fn, x, t_max, generator=generator)
+        if algorithm == "ddim":
+            return samplers.sample_ddim(self.schedule, denoise_fn, x, t_max, speedup)
+        if algorithm == "pndm":
+            return samplers.sample_plms(self.schedule, denoise_fn, x, t_max, speedup)
+        if algorithm == "dpm-solver":
+            return samplers.sample_dpmpp(self.schedule, denoise_fn, x, t_max, t_max // speedup,
+                                         order=solver_order)
+        if algorithm == "unipc":
+            return samplers.sample_unipc_bh2(self.schedule, denoise_fn, x, t_max,
+                                             t_max // speedup, variant=unipc_variant)
+        raise ValueError(f"Unsupported DDPM acceleration algorithm: {algorithm}")
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,14 @@
 """Acoustic model assembly (counterpart of the JAX ``training/acoustic.py:build_acoustic``).
 
-The training step itself is not ported yet.
+Builds the model and its diffusion core: ``GaussianDiffusion`` for
+``diffusion_type: ddpm`` and ``RectifiedFlow`` for ``reflow``.  The training
+step itself is not ported yet.
 """
 
 from __future__ import annotations
 
-from ..models.diffusion.core import RectifiedFlow, SpecNormalizer
+from ..models.diffusion.core import GaussianDiffusion, RectifiedFlow, SpecNormalizer
+from ..models.diffusion.schedule import DiffusionSchedule
 from ..models.toplevel import AcousticModel
 
 
@@ -18,10 +21,15 @@ def build_acoustic(cfg, vocab_size: int):
         num_feats=1,
     )
     diffusion_type = cfg.get("diffusion_type", "ddpm")
-    if diffusion_type != "reflow":
-        raise NotImplementedError(
-            f"diffusion_type {diffusion_type!r} is not ported yet (ported: 'reflow')"
-        )
-    t_start = cfg.get("T_start", 0.0) if cfg.get("use_shallow_diffusion", False) else 0.0
-    core = RectifiedFlow(t_start=t_start, time_scale_factor=cfg.get("time_scale_factor", 1000))
+    if diffusion_type == "ddpm":
+        timesteps = cfg.get("timesteps", 1000)
+        schedule = DiffusionSchedule.create(cfg.get("schedule_type", "linear"), timesteps)
+        k_step = cfg.get("K_step", timesteps) if cfg.get("use_shallow_diffusion", False) \
+            else timesteps
+        core = GaussianDiffusion(schedule=schedule, timesteps=timesteps, k_step=k_step)
+    elif diffusion_type == "reflow":
+        t_start = cfg.get("T_start", 0.0) if cfg.get("use_shallow_diffusion", False) else 0.0
+        core = RectifiedFlow(t_start=t_start, time_scale_factor=cfg.get("time_scale_factor", 1000))
+    else:
+        raise NotImplementedError(diffusion_type)
     return model, core, normalizer

@@ -96,6 +96,25 @@ def lynxnet_state_dict(p: dict, prefix: str, num_layers: int) -> Dict[str, torch
     return out
 
 
+def wavenet_state_dict(p: dict, prefix: str, num_layers: int) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _conv1x1(out, f"{prefix}.input_projection", p["input_projection"])
+    _linear(out, f"{prefix}.mlp.0", p["mlp_0"])
+    _linear(out, f"{prefix}.mlp.2", p["mlp_2"])
+    _conv1x1(out, f"{prefix}.skip_projection", p["skip_projection"])
+    _conv1x1(out, f"{prefix}.output_projection", p["output_projection"])
+    for i in range(num_layers):
+        lp, lq = f"{prefix}.residual_layers.{i}", p[f"residual_layers_{i}"]
+        _conv(out, f"{lp}.dilated_conv", lq["dilated_conv"])
+        _linear(out, f"{lp}.diffusion_projection", lq["diffusion_projection"])
+        _conv1x1(out, f"{lp}.conditioner_projection", lq["conditioner_projection"])
+        _conv1x1(out, f"{lp}.output_projection", lq["output_projection"])
+    return out
+
+
+_BACKBONES = {"lynxnet": lynxnet_state_dict, "wavenet": wavenet_state_dict}
+
+
 def convnext_state_dict(p: dict, prefix: str, num_layers: int) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     _conv(out, f"{prefix}.inconv", p["inconv"])
@@ -135,10 +154,10 @@ def acoustic_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     p = _root(params)
     out = fs2_acoustic_state_dict(p["fs2"], "fs2", cfg.get("enc_layers", 4))
     backbone_type = cfg.get("backbone_type", "wavenet")
-    if backbone_type != "lynxnet":
-        raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
-    out.update(lynxnet_state_dict(p["backbone"], "diffusion.velocity_fn",
-                                  cfg.get("backbone_args", {}).get("num_layers", 6)))
+    # DDPM names its net denoise_fn, rectified flow velocity_fn
+    net = "denoise_fn" if cfg.get("diffusion_type", "ddpm") == "ddpm" else "velocity_fn"
+    out.update(_BACKBONES[backbone_type](p["backbone"], f"diffusion.{net}",
+                                         cfg.get("backbone_args", {}).get("num_layers", 20)))
     if "aux_decoder" in p:
         shallow = cfg.get("shallow_diffusion_args", {})
         out.update(convnext_state_dict(
