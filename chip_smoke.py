@@ -27,7 +27,27 @@ Phases, each printed on its own line:
      reference names (``diffusion.denoise_fn.*`` and the schedule buffers):
      the same ``.ds`` run, where K4 must launch 20 x 40 times per segment
      and K2 at least once, the same kernel-path vs f32 check, and a
-     batched timing at B=4, T=2048, 40 DDIM steps.
+     batched timing at B=4, T=2048, 40 DDIM steps;
+  8. vocoder copy-synthesis (``inference/val_vocoder.copy_synthesis`` on the
+     card) with the random full-width vocoder of phase 6, on two files: the
+     wav phase 6 rendered from the sample ``.ds`` and a synthetic 2048-frame
+     (23.8 s) harmonic tone with vibrato around 220 Hz and noise at -40 dB,
+     written at 22.05 kHz so that loading resamples it.  Each output wav must
+     be finite with frames*hop samples, K3 must launch once per file and K2
+     at least once; each file's K3-scored mel MAE must agree with the same
+     pair scored through K3's plain version within 1e-4, and the synthetic
+     clip's tracked f0 must be within 50 cents RMSE of its known curve, with
+     voicing agreement > 0.9.  Per-file stage times are printed.
+
+Phase 5b (after phase 5, so ``--kernels-only`` covers it) holds K3
+``mel_spectrogram`` at the shipped ``MelConfig`` (44.1 kHz, n_fft = win 2048,
+hop 512, 128 Slaney mels) against its plain version (the f32 matrix-product
+DFT, TF32 off) within 2e-3 nats and against the host path (numpy, f64 FFT)
+within 1e-3 nats over the true frames less the last 2 (bucket padding
+changes the reflected tail), at B=4 x 2048 frames of uniform noise in
+[-0.5, 0.5] and at B=2 with an off-bucket length; shapes must be equal.
+Its ``library_ms`` is ``torch.stft`` (cuFFT) + the dense mel product + log on
+the same input, timed here only.
 
 Tolerance of a kernel against its plain version (same inputs, bf16 products,
 TF32 off): max |kernel - plain| <= 0.02 * max |plain| and correlation >
@@ -43,7 +63,8 @@ line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
 ``bound_ms`` at the phase 3-5 shapes; K2's are the sum of its two stage
 calls, K4's the mean over its four dilations; ``launches`` are wrapper calls
 in the ``.ds`` run of the configuration that runs the kernel: phase 6 for K1
-and K2, phase 7 for K4).  The last line is ``{"ok": true, "device": {...}}``.
+and K2, phase 7 for K4; phase 8 for K3).  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -287,6 +308,84 @@ def check_k4(reps: int = 20) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K3
+# ---------------------------------------------------------------------------
+
+K3_TOL_PLAIN = 2e-3   # nats, kernel vs the f32 matrix-product DFT
+K3_TOL_NUMPY = 1e-3   # nats, kernel vs the host path (f64 FFT)
+K3_FRAMES = 2048
+
+
+def k3_bound(prep, B: int, T: int):
+    """A real FFT (2.5 n log2 n), the sparse mel projection (2 per weight) and
+    the magnitudes (~3 per bin used) per frame, against the waveform read
+    once and the log-mel written once."""
+    frames = B * prep.num_frames(T)
+    flop = frames * (2.5 * prep.n_fft * math.log2(prep.n_fft) + 2 * prep.nnz + 3 * prep.n_bins)
+    nbytes = B * T * 4 + frames * prep.n_mels * 4
+    return bound_ms(nbytes, 0.0, flop)
+
+
+def check_k3(reps: int = 20) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
+    from xiaoicesing_io_tpu_torch.ops.mel import MelConfig, MelSpectrogram, num_frames
+
+    cfg = MelConfig()
+    ext = MelSpectrogram(cfg)
+    prep = ext.prepared("cuda")
+    rng = np.random.default_rng(0)
+    errs = []
+    for B, T in ((B_TIME, K3_FRAMES * cfg.hop_size), (2, 3 * cfg.hop_size * 100 + 77)):
+        y_np = rng.uniform(-0.5, 0.5, (B, T)).astype(np.float32)
+        y = torch.from_numpy(y_np).cuda()
+        got = ext.device(y)
+        torch.cuda.synchronize()
+        plain = ext.device(y, plain=True)
+        ref = ext.numpy(y_np)
+        n = num_frames(T, cfg.win_size, cfg.hop_size)
+        if not (got.shape == plain.shape and ref.shape == (B, n, cfg.n_mels)
+                and got.shape[1] >= n and torch.isfinite(got).all()):
+            raise AssertionError(f"K3 shapes: kernel {tuple(got.shape)}, plain "
+                                 f"{tuple(plain.shape)}, host {ref.shape}")
+        err_plain = (got - plain).abs().max().item()
+        err_np = float(np.abs(got[:, : n - 2].cpu().numpy() - ref[:, : n - 2]).max())
+        log(f"[check] K3 mel_spectrogram [B={B},T={T},{n} frames, {got.shape[1]} bucketed]: "
+            f"max_abs_err vs plain={err_plain:.6g} (tolerance {K3_TOL_PLAIN}), vs host "
+            f"numpy={err_np:.6g} over {n - 2} frames (tolerance {K3_TOL_NUMPY}); "
+            f"mel range [{got.min().item():.3f}, {got.max().item():.3f}]")
+        if err_plain > K3_TOL_PLAIN or err_np > K3_TOL_NUMPY:
+            raise AssertionError("K3 disagrees with its plain version or the host path")
+        errs.append(err_plain)
+        if B == B_TIME:
+            y_time = y
+    y = y_time
+    window = torch.hann_window(cfg.win_size, device="cuda")
+    pad_l, pad_r = prep.pad_l, prep.pad_r
+
+    def library():
+        ypad = F.pad(y[:, None], (pad_l, pad_r), mode="reflect")[:, 0]
+        spec = torch.stft(ypad, cfg.n_fft, hop_length=cfg.hop_size, win_length=cfg.win_size,
+                          window=window, center=False, return_complex=True).abs()
+        return torch.log(torch.clamp(prep.mel_basis @ spec, min=cfg.clip_val)).transpose(1, 2)
+
+    lib_err = (library() - K3.mel_spectrogram(y, prep)).abs().max().item()
+    ms = cuda_ms(lambda: K3.mel_spectrogram(y, prep), reps)
+    plain_ms = cuda_ms(lambda: ext.torch(y), 5)
+    library_ms = cuda_ms(library, reps)
+    bms, by = k3_bound(prep, B_TIME, y.shape[1])
+    log(f"[K3] ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
+        f"[B={B_TIME}, {K3_FRAMES} frames; library = torch.stft + mel product + log, "
+        f"max |library - kernel| {lib_err:.6g}]")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
 # the main path: .ds -> wav through the port's runner, for each configuration
 # ---------------------------------------------------------------------------
 
@@ -362,9 +461,10 @@ def corr(a, b) -> float:
     return torch.corrcoef(torch.stack([a.flatten().float(), b.flatten().float()]))[0, 1].item()
 
 
-def drive_main_path(runner, out_dir: Path) -> dict:
+def drive_main_path(runner, out_dir: Path) -> tuple:
     """Every segment of one sample ``.ds`` through ``run_inference``; returns
-    the kernels' launch counts of that run and its number of segments."""
+    the kernels' launch counts of that run, its number of segments and the
+    wav it wrote."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -410,7 +510,7 @@ def drive_main_path(runner, out_dir: Path) -> dict:
     log(f"[ds] {SAMPLE}: {len(params)} segments, {sum(f for f, _ in segments)} frames -> "
         f"{wav.shape[0]} samples ({wav.shape[0] / sr:.2f} s) at {rate} Hz, finite, "
         f"each segment frames*{hop} samples; {seconds:.2f}s host; launches {launches}")
-    return launches, len(params)
+    return launches, len(params), path
 
 
 def check_against_f32(runner, seed: int = 0) -> None:
@@ -503,10 +603,10 @@ def batched_timing(runner, name_limit: str, label: str, steps: int, kernels: dic
 
 
 def run_configuration(label: str, work: Path, overrides, name_limit: str,
-                      kernels: dict) -> dict:
+                      kernels: dict) -> tuple:
     """Phases 6 and 7: a random full-width experiment, the ``.ds`` run, the
     kernel-path vs f32 check and the batched timing of one configuration;
-    returns the ``.ds`` run's launch counts.  The denoiser's kernel (K1 for
+    returns the ``.ds`` run's launch counts, the configuration and the wav.  The denoiser's kernel (K1 for
     LYNXNet, K4 for WaveNet) must launch once per layer per sampler step per
     segment, K2 at least once."""
     import torch
@@ -530,7 +630,7 @@ def run_configuration(label: str, work: Path, overrides, name_limit: str,
         if cfg["sampling_algorithm"] != "euler":
             raise AssertionError("the launch count and the timing assume Euler")
         steps = cfg["sampling_steps"]
-    launches, segments = drive_main_path(runner, work / "out")
+    launches, segments, wav = drive_main_path(runner, work / "out")
     denoiser = "wavenet_block" if runner.backbone_type == "wavenet" else "lynx_conv_module"
     want = len(runner.model.backbone.residual_layers) * steps * segments
     log(f"[ds {label}] {denoiser}: {launches[denoiser]} launches, expected {want} "
@@ -541,6 +641,120 @@ def run_configuration(label: str, work: Path, overrides, name_limit: str,
     check_against_f32(runner)
     batched_timing(runner, name_limit, label, steps, kernels)
     del runner
+    torch.cuda.empty_cache()
+    return launches, cfg, wav
+
+
+# ---------------------------------------------------------------------------
+# copy-synthesis: wav -> mel -> f0 -> NSF-HiFiGAN -> wav, scored (K3, K2)
+# ---------------------------------------------------------------------------
+
+SYNTH_FILE_SR = 22050
+SYNTH_F0 = 220.0
+F0_TOL_CENTS = 50.0
+F0_MIN_AGREEMENT = 0.9
+MAE_TOL = 1e-4
+
+
+def synthetic_clip(path: Path, hop: int, sr: int, frames: int = K3_FRAMES, seed: int = 0):
+    """A harmonic tone with +-50 cent vibrato at 5.5 Hz around 220 Hz and
+    white noise 40 dB below it, ``frames * hop`` samples at ``sr`` once
+    resampled, written at 22.05 kHz; returns its f0 at the frame centres."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.utils.audio import save_wav
+
+    def f0_at(t):
+        return SYNTH_F0 * 2.0 ** (0.5 * np.sin(2 * np.pi * 5.5 * t) / 12)
+
+    n = frames * hop * SYNTH_FILE_SR // sr
+    t = np.arange(n) / SYNTH_FILE_SR
+    phase = 2 * np.pi * np.cumsum(f0_at(t)) / SYNTH_FILE_SR
+    x = sum(np.sin(k * phase) / k for k in range(1, 9))
+    x = 0.5 * x / np.abs(x).max()
+    rms = np.sqrt(np.mean(x ** 2))
+    x = x + np.random.default_rng(seed).standard_normal(n) * rms * 10 ** (-40 / 20)
+    save_wav(x, path, SYNTH_FILE_SR)
+    return f0_at(np.arange(frames) * hop / sr)
+
+
+def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str) -> dict:
+    """Phase 8: ``copy_synthesis`` on the card (the launch counters are zeroed
+    just before it and read just after); returns its launch counts."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from xiaoicesing_io_tpu_torch.eval.metrics import f0_rmse_cents
+    from xiaoicesing_io_tpu_torch.inference import val_vocoder as V
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+    from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
+
+    hop, sr = cfg["hop_size"], cfg["audio_sample_rate"]
+    work.mkdir(parents=True)
+    synth = work / "synthetic_tone.wav"
+    known_f0 = synthetic_clip(synth, hop, sr)
+    pairs, pitches = [], []
+    score, pitch = V._score_pair, V.get_pitch
+
+    def score_pair(extractor, wav, rec, mel, device, plain=False):
+        pairs.append((extractor, wav, rec, mel, device))
+        return score(extractor, wav, rec, mel, device, plain)
+
+    def get_pitch(*args, **kwargs):
+        out = pitch(*args, **kwargs)
+        pitches.append(out)
+        return out
+
+    V._score_pair, V.get_pitch = score_pair, get_pitch
+    try:
+        K1.launches = K2.launches = K3.launches = K4.launches = 0
+        t0 = time.perf_counter()
+        results = V.copy_synthesis([ds_wav, synth], cfg, work / "out", device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = {"lynx_conv_module": K1.launches, "fused_resblock_stage": K2.launches,
+                    "mel_spectrogram": K3.launches, "wavenet_block": K4.launches}
+    finally:
+        V._score_pair, V.get_pitch = score, pitch
+
+    log(f"[copysyn] launches {launches}; expected mel_spectrogram 2 (one per file), "
+        f"fused_resblock_stage >= 1")
+    if launches["mel_spectrogram"] != 2 or launches["fused_resblock_stage"] < 1:
+        raise AssertionError("copy-synthesis did not launch its kernels as expected")
+    audio_s = 0.0
+    for res, (extractor, wav, rec, mel, device), (f0, uv) in zip(results, pairs, pitches):
+        rate, out = wavfile.read(res["out"])
+        if (device is None or device.type != "cuda" or not np.isfinite(rec).all()
+                or len(rec) != len(mel) * hop or rate != sr or out.shape != rec.shape):
+            raise AssertionError(f"{res['file']}: reconstruction of {len(rec)} samples "
+                                 f"({len(mel)} frames, scored on {device}) written as "
+                                 f"{out.shape} at {rate} Hz")
+        plain = score(extractor, wav, rec, mel, device, plain=True)
+        host = score(extractor, wav, rec, mel, None)
+        audio_s += len(wav) / sr
+        st = res["seconds"]
+        log(f"[copysyn] {Path(res['file']).name}: {len(mel)} frames ({len(wav) / sr:.3f} s), "
+            f"mel_mae K3={res['mel_mae']:.6f} plain={plain:.6f} |diff|="
+            f"{abs(res['mel_mae'] - plain):.3g} (tolerance {MAE_TOL}); host-path mel_mae="
+            f"{host:.6f} (record only: its tail frames are not bucket-padded); "
+            f"pesq*={res['pesq']:.4f}")
+        log(f"[copysyn stages] {Path(res['file']).name}: "
+            + " ".join(f"{k}_s={v:.4f}" for k, v in st.items())
+            + f" (load, GT mel, pitch, save, PESQ* on the host; vocoder and K3 pair on the "
+              f"card) total_s={sum(st.values()):.4f}")
+        if not abs(res["mel_mae"] - plain) <= MAE_TOL:
+            raise AssertionError("the K3-scored mel MAE disagrees with the plain version's")
+    f0, uv = pitches[1]
+    rmse, agreement = f0_rmse_cents(np.where(uv, 0.0, f0), known_f0)
+    log(f"[copysyn] synthetic clip f0 vs its known curve: rmse={rmse:.4f} cents "
+        f"(tolerance < {F0_TOL_CENTS}), voicing agreement={agreement:.4f} "
+        f"(tolerance > {F0_MIN_AGREEMENT})")
+    if not (rmse < F0_TOL_CENTS and agreement > F0_MIN_AGREEMENT):
+        raise AssertionError("the pitch tracker missed the synthetic clip's f0")
+    log(f"[timing copysyn] card={name_limit} files=2 audio_s={audio_s:.3f} "
+        f"seconds={seconds:.4f} audio_s_per_s={audio_s / seconds:.4f}")
     torch.cuda.empty_cache()
     return launches
 
@@ -578,6 +792,7 @@ def main(argv) -> int:
     k1 = check_k1()
     k2 = check_k2()
     k4 = check_k4()
+    k3 = check_k3()
     if "--kernels-only" in argv:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
         return 0
@@ -585,10 +800,11 @@ def main(argv) -> int:
     work = ROOT / ".work" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        lynx = run_configuration("lynx_reflow", work / "lynx", None, name_limit,
-                                 {"K1": k1, "K2": k2})
-        wavenet = run_configuration("wavenet_ddpm", work / "wavenet", WAVENET_DDPM, name_limit,
-                                    {"K4": k4, "K2": k2})
+        lynx, lynx_cfg, ds_wav = run_configuration("lynx_reflow", work / "lynx", None,
+                                                   name_limit, {"K1": k1, "K2": k2})
+        wavenet, _, _ = run_configuration("wavenet_ddpm", work / "wavenet", WAVENET_DDPM,
+                                          name_limit, {"K4": k4, "K2": k2})
+        copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -605,6 +821,10 @@ def main(argv) -> int:
              source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
              launches=wavenet["wavenet_block"], library_ms=None, **k4),
+        dict(name="mel_spectrogram", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",
+             launches=copysyn["mel_spectrogram"], **k3),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

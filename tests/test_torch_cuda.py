@@ -19,6 +19,7 @@ import torch
 
 from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
 from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
 pytestmark = pytest.mark.cuda
@@ -243,3 +244,128 @@ def test_wavenet_denoiser_apply_on_card_matches_f32_module(cuda):
         torch.cuda.synchronize()
     assert K4.launches == before + 8
     _rel_close(got, ref, tol=0.05, min_corr=0.999)
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused STFT -> log-mel kernel.  f32 on both sides: against the plain
+# matrix-product DFT (f32, TF32 off) within 2e-3 nats, the bar at which the
+# JAX package holds its own f32 DFT against numpy; against the host path
+# (numpy, f64 FFT) within 1e-3 nats.  Frame counts must be equal.
+# ---------------------------------------------------------------------------
+
+K3_TOL_PLAIN = 2e-3
+K3_TOL_NUMPY = 1e-3
+
+
+def _mel_cfg(n_fft, win):
+    from xiaoicesing_io_tpu_torch.ops.mel import MelConfig
+
+    if n_fft == 256:  # the small configuration of the mel tests
+        return MelConfig(sample_rate=16000, n_mels=64, n_fft=256, win_size=win, hop_size=64,
+                         fmin=30.0, fmax=8000.0)
+    return MelConfig(n_fft=n_fft, win_size=win, hop_size=n_fft // 4)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("win_quarters", [4, 3])
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+def test_mel_spec_kernel_matches_plain_and_numpy(cuda, n_fft, win_quarters, B):
+    from xiaoicesing_io_tpu_torch.ops.mel import MelSpectrogram
+
+    cfg = _mel_cfg(n_fft, n_fft * win_quarters // 4)
+    ext = MelSpectrogram(cfg)
+    rng = np.random.default_rng(n_fft + B)
+    T = cfg.hop_size * 150 + 77 + B  # off any bucket
+    y_np = rng.uniform(-0.5, 0.5, (B, T)).astype(np.float32)
+    y = torch.from_numpy(y_np).to(cuda)
+    before = K3.launches
+    got = K3.mel_spectrogram(y, ext.prepared(cuda))
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    plain = ext.torch(y)
+    ref = ext.numpy(y_np)
+    assert got.shape == plain.shape == ref.shape
+    assert torch.isfinite(got).all()
+    assert (got - plain).abs().max().item() <= K3_TOL_PLAIN
+    assert np.abs(got.cpu().numpy() - ref).max() <= K3_TOL_NUMPY
+
+
+def test_mel_spec_kernel_raises_instead_of_falling_back(cuda):
+    from xiaoicesing_io_tpu_torch.ops.mel import MelConfig
+
+    y = torch.zeros(2, 8192, device=cuda)
+    before = K3.launches
+    for n_fft in (384, 4096, 128):  # not a power of two, too large, too small
+        prep = K3.prepare_mel(MelConfig(sample_rate=16000, n_mels=32, n_fft=n_fft,
+                                        win_size=n_fft, hop_size=64, fmin=30.0, fmax=8000.0),
+                              cuda)
+        with pytest.raises(ValueError, match="power-of-two n_fft"):
+            K3.mel_spectrogram(y, prep)
+    prep = K3.prepare_mel(_mel_cfg(256, 256), cuda)
+    for dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError, match="f32"):
+            K3.mel_spectrogram(y.to(dtype), prep)
+    with pytest.raises(ValueError, match="contiguous"):
+        K3.mel_spectrogram(torch.zeros(8192, 2, device=cuda).t(), prep)
+    with pytest.raises(ValueError, match="prepare_mel"):
+        K3.mel_spectrogram(y, K3.prepare_mel(_mel_cfg(256, 256), "cpu"))
+    assert K3.launches == before
+
+
+def test_mel_device_launches_once_per_call(cuda):
+    """``MelSpectrogram.device`` on a CUDA tensor: bucket padding, then one
+    K3 launch, whatever B; the true frames match the host path."""
+    from xiaoicesing_io_tpu_torch.ops.mel import MelConfig, MelSpectrogram, num_frames
+
+    cfg = MelConfig()
+    ext = MelSpectrogram(cfg)
+    rng = np.random.default_rng(5)
+    for B in (1, 2):
+        T = 3 * cfg.hop_size * 100 + 77
+        y = rng.uniform(-0.5, 0.5, (B, T)).astype(np.float32)
+        before = K3.launches
+        got = ext.device(torch.from_numpy(y).to(cuda), bucket_frames=64)
+        torch.cuda.synchronize()
+        assert K3.launches == before + 1
+        n = num_frames(T, cfg.win_size, cfg.hop_size)
+        assert got.shape == (B, num_frames(-(-T // (64 * 512)) * 64 * 512, 2048, 512), 128)
+        ref = ext.numpy(y)
+        # bucket padding changes the reflected tail: the last 2 true frames differ
+        assert np.abs(got[:, : n - 2].cpu().numpy() - ref[:, : n - 2]).max() <= K3_TOL_NUMPY
+
+
+def test_copy_synthesis_on_card_launches_k3_once(cuda, tmp_path):
+    """One short file through ``copy_synthesis`` on the card with a random
+    narrow vocoder: one K3 launch (the scored pair), K2 on stages 0 and 1."""
+    import json
+
+    from scipy.io import wavfile
+
+    from xiaoicesing_io_tpu_torch.inference.val_vocoder import copy_synthesis
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
+        Generator, NsfHifiganConfig,
+    )
+    from xiaoicesing_io_tpu_torch.ops.mel import num_frames
+    from xiaoicesing_io_tpu_torch.utils.audio import save_wav
+
+    vcfg = dict(num_mels=128, sampling_rate=44100, hop_size=512, n_fft=2048, win_size=2048,
+                fmin=40, fmax=16000, upsample_rates=[8, 8, 2, 2, 2],
+                upsample_kernel_sizes=[16, 16, 4, 4, 4], upsample_initial_channel=64,
+                resblock="1", resblock_kernel_sizes=[3, 7, 11],
+                resblock_dilation_sizes=[[1, 3, 5]] * 3)
+    torch.manual_seed(0)
+    torch.save({"generator": Generator(NsfHifiganConfig.from_json(vcfg)).state_dict()},
+               tmp_path / "model.ckpt")
+    (tmp_path / "config.json").write_text(json.dumps(vcfg))
+    cfg = {"audio_sample_rate": 44100, "audio_num_mel_bins": 128, "fft_size": 2048,
+           "win_size": 2048, "hop_size": 512, "fmin": 40, "fmax": 16000, "f0_min": 65,
+           "f0_max": 1100, "mel_base": "e", "vocoder_ckpt": str(tmp_path / "model.ckpt")}
+    t = np.arange(44100) / 44100
+    save_wav(0.3 * np.sin(2 * np.pi * 220 * t), tmp_path / "tone.wav", 44100)
+    k2, k3 = K2.launches, K3.launches
+    (res,) = copy_synthesis([tmp_path / "tone.wav"], cfg, tmp_path / "out", device="cuda")
+    assert K3.launches == k3 + 1
+    assert K2.launches > k2
+    assert np.isfinite(res["mel_mae"]) and np.isfinite(res["pesq"])
+    sr, rec = wavfile.read(res["out"])
+    assert sr == 44100 and len(rec) == num_frames(44100, 2048, 512) * 512

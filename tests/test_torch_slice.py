@@ -262,7 +262,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 48
 
 
 def test_entry_points_default_to_cuda(exp_dir):
