@@ -39,6 +39,21 @@ Phases, each printed on its own line:
      clip's tracked f0 must be within 50 cents RMSE of its known curve, with
      voicing agreement > 0.9.  Per-file stage times are printed.
 
+  9. the sampler sweep (``tools/perf_sweep.py``, the cell lynx_variants):
+     the shipped LYNXNet 1024 x 6 with random weights, B=4, T=2048, 50
+     Euler steps from T_start 0.4, in every mode (module, v1, v2, v3,
+     hybrid), with the launch counters zeroed just before each mode's call
+     and read just after: v1 must launch K1, v2 K5, v3 K7 and hybrid K8
+     6 x 50 = 300 times, and nothing else; the module mode none.  The
+     denormed mel of v2, v3 and hybrid must agree with v1's within 5 % of
+     its scale, corr > 0.999 (the module mode's is recorded).  Then ms per
+     step for each mode.
+
+Phase 5c (after phase 5b, so ``--kernels-only`` covers it) holds K5
+``lynx_layer_fused``, K7 ``lynx_layer_fused_v3`` and K8 ``conv_tail``
+against their plain versions at B=4, T=2048, dim 1024, inner 2048, k 31 (K8
+on the PyTorch head's output for the same ``x``).
+
 Phase 5b (after phase 5, so ``--kernels-only`` covers it) holds K3
 ``mel_spectrogram`` at the shipped ``MelConfig`` (44.1 kHz, n_fft = win 2048,
 hop 512, 128 Slaney mels) against its plain version (the f32 matrix-product
@@ -63,7 +78,8 @@ line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
 ``bound_ms`` at the phase 3-5 shapes; K2's are the sum of its two stage
 calls, K4's the mean over its four dilations; ``launches`` are wrapper calls
 in the ``.ds`` run of the configuration that runs the kernel: phase 6 for K1
-and K2, phase 7 for K4; phase 8 for K3).  The last line is ``{"ok": true,
+and K2, phase 7 for K4; phase 8 for K3; phase 9, in the mode that runs it,
+for K5, K7 and K8).  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -138,6 +154,31 @@ def bound_ms(bytes_moved: float, bf16_flops: float, f32_flops: float = 0.0):
     t_bytes = bytes_moved / HBM_BYTES * 1e3
     t_ops = max(bf16_flops / BF16_FLOPS, f32_flops / F32_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def counters():
+    """(name in the kernels line, wrapper module, counter attribute) of every
+    kernel."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
+    from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
+
+    return (("lynx_conv_module", K1, "launches"), ("fused_resblock_stage", K2, "launches"),
+            ("mel_spectrogram", K3, "launches"), ("wavenet_block", K4, "launches"),
+            ("lynx_layer_fused", K5, "launches_v2"), ("lynx_layer_fused_v3", K5, "launches_v3"),
+            ("lynx_conv_tail", K8, "launches"))
+
+
+def zero_launch_counts() -> None:
+    for _, module, attr in counters():
+        setattr(module, attr, 0)
+
+
+def launch_counts() -> dict:
+    return {name: getattr(module, attr) for name, module, attr in counters()}
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +427,143 @@ def check_k3(reps: int = 20) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K5, K7, K8: the LYNX sampler's kernel variants
+# ---------------------------------------------------------------------------
+
+def layer_bound(B, T, dim=1024, inner=2048, k=31):
+    """K5 and K7: the three products and the f32 conv, against x, cond_proj
+    and the output (bf16) and the weights read once."""
+    rows = B * T
+    mm = 2 * rows * dim * 2 * inner + 2 * rows * inner * dim
+    conv = 2 * rows * inner * k
+    nbytes = 3 * rows * dim * 2 + B * dim * 4 + (dim * 2 * inner + inner * dim) * 2 \
+        + (2 * dim + 5 * inner + k * inner) * 4
+    return bound_ms(nbytes, mm, conv)
+
+
+def tail_bound(B, T, dim=1024, inner=2048, k=31):
+    """K8: the [inner -> dim] product and the f32 conv, against the bf16
+    inner rows, the output and the tail's weights read once."""
+    rows = B * T
+    nbytes = rows * inner * 2 + rows * dim * 2 + inner * dim * 2 + (3 * inner + k * inner
+                                                                      + dim) * 4
+    return bound_ms(nbytes, 2 * rows * inner * dim, 2 * rows * inner * k)
+
+
+def check_variants(reps: int = 10) -> dict:
+    """K5, K7 and K8 against their plain versions at the sweep's shape (B=4,
+    T=2048, dim 1024, inner 2048, k 31); K8 on the head's output for x."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
+
+    B, T, k = B_TIME, T_TIME, 31
+    x, params = k1_inputs(B, T)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cond = torch.randn(B, T, x.shape[-1], generator=g, device="cuda").to(torch.bfloat16)
+    step = torch.randn(B, x.shape[-1], generator=g, device="cuda").to(torch.bfloat16).float()
+    weights = K5.prepare_layer_weights(*params)
+    shape = "[B=4,T=2048,dim=1024,inner=2048,k=31]"
+    out = {}
+    ref = K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k)
+    for key, name, fn in (("K5", "lynx_layer_fused", K5.lynx_layer_fused),
+                          ("K7", "lynx_layer_fused_v3", K5.lynx_layer_fused_v3)):
+        got = fn(x, cond, step, weights, kernel_size=k)
+        torch.cuda.synchronize()
+        err = compare(f"{key} {name} {shape}", got, ref)
+        del got
+        ms = cuda_ms(lambda: fn(x, cond, step, weights, kernel_size=k), reps)
+        out[key] = {"max_abs_err": err, "ms": ms}
+    del ref
+    plain_ms = cuda_ms(lambda: K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k),
+                       3)
+    bms, by = layer_bound(B, T)
+    for key in ("K5", "K7"):
+        out[key].update(plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        log(f"[{key}] ms={out[key]['ms']:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
+            f"share_of_bound={bms / out[key]['ms']:.3f}")
+
+    act = K8.conv_head(x, *weights[:4])
+    tail = weights[4:]
+    got = K8.conv_tail(act, tail, kernel_size=k)
+    torch.cuda.synchronize()
+    err = compare(f"K8 conv_tail {shape}", got, K8.conv_tail_plain(act, *params[4:],
+                                                                     kernel_size=k))
+    del got
+    ms = cuda_ms(lambda: K8.conv_tail(act, tail, kernel_size=k), reps)
+    plain_ms = cuda_ms(lambda: K8.conv_tail_plain(act, *params[4:], kernel_size=k), 3)
+    bms, by = tail_bound(B, T)
+    head_ms = cuda_ms(lambda: K8.conv_head(x, *weights[:4]), reps)
+    log(f"[K8] ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
+        f"share_of_bound={bms / ms:.3f} (the torch head before it: {head_ms:.4f} ms)")
+    out["K8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                 "bound_by": by}
+    return out
+
+
+SWEEP_STEPS = 50
+SWEEP_MODE_KERNEL = {"v1": "lynx_conv_module", "v2": "lynx_layer_fused",
+                     "v3": "lynx_layer_fused_v3", "hybrid": "lynx_conv_tail"}
+
+
+def run_sampler_sweep(name_limit: str, reps: int = 2) -> dict:
+    """Phase 9: the sweep's sampler at full width, every mode; the launch
+    counters are zeroed just before each mode's checked call and read just
+    after.  Returns the launches of each variant kernel in its mode."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.tools import perf_sweep
+
+    t0 = time.perf_counter()
+    sweep = perf_sweep.SamplerSweep.random(device="cuda", B=B_TIME, T=T_TIME,
+                                           steps=SWEEP_STEPS)
+    layers = len(sweep.model.backbone.residual_layers)
+    want = layers * SWEEP_STEPS
+    log(f"[setup lynx_variants] shipped LYNXNet {sweep.model.backbone.num_channels} x {layers}, "
+        f"random weights, B={B_TIME} T={T_TIME} {SWEEP_STEPS} Euler steps; built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    mels, launches = {}, {}
+    for mode in perf_sweep.MODES:
+        zero_launch_counts()
+        mel = sweep.run(mode)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        kernel = SWEEP_MODE_KERNEL.get(mode)
+        log(f"[sweep {mode}] launches {counts}; expected {kernel}: {want} "
+            f"({layers} layers x {SWEEP_STEPS} steps), every other kernel 0")
+        others = [v for k, v in counts.items() if k != kernel]
+        if (kernel is not None and counts[kernel] != want) or any(others):
+            raise AssertionError(f"sweep mode {mode} did not launch its kernel as expected")
+        if kernel is not None:
+            launches[kernel] = counts[kernel]
+        if mel.shape != (B_TIME, T_TIME, sweep.cfg["audio_num_mel_bins"]) \
+                or not torch.isfinite(mel).all():
+            raise AssertionError(f"sweep mode {mode}: mel {tuple(mel.shape)}, finite "
+                                 f"{bool(torch.isfinite(mel).all())}")
+        mels[mode] = mel
+    ref = mels["v1"]
+    for mode in ("module", "v2", "v3", "hybrid"):
+        err = (mels[mode] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        c = corr(mels[mode], ref)
+        checked = mode != "module"
+        log(f"[check] sweep mel, {mode} vs v1: max_abs_err={err:.6g} max_abs_ref={scale:.6g} "
+            f"corr={c:.6f} " + (f"(tolerance: err <= {MEL_TOL_REL} * max_abs_ref, corr > "
+                               f"{MEL_TOL_CORR})" if checked else "(record only)"))
+        if checked and not (err <= MEL_TOL_REL * scale and c > MEL_TOL_CORR):
+            raise AssertionError(f"the {mode} sweep's mel disagrees with v1's")
+    del mels
+    times = perf_sweep.sweep_sampler(perf_sweep.MODES, sweep=sweep, reps=reps)
+    log(f"[timing lynx_variants] card={name_limit} B={B_TIME} T={T_TIME} steps={SWEEP_STEPS} "
+        f"(mean of {reps}): " + " ".join(f"{m}_ms_per_step={t['ms_per_step']:.4f}"
+                                          for m, t in times.items()))
+    del sweep
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the main path: .ds -> wav through the port's runner, for each configuration
 # ---------------------------------------------------------------------------
 
@@ -469,9 +647,6 @@ def drive_main_path(runner, out_dir: Path) -> tuple:
     from scipy.io import wavfile
 
     from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
-    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
-    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
-    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
     params = load_ds(ROOT / SAMPLE)
     vocode = runner.run_vocoder
@@ -485,12 +660,11 @@ def drive_main_path(runner, out_dir: Path) -> tuple:
         return wav
 
     runner.run_vocoder = run_vocoder
-    K1.launches = K2.launches = K4.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     (path,) = runner.run_inference(params, out_dir=out_dir, title="smoke", seed=0)
     seconds = time.perf_counter() - t0
-    launches = {"lynx_conv_module": K1.launches, "fused_resblock_stage": K2.launches,
-                "wavenet_block": K4.launches}
+    launches = launch_counts()
     runner.run_vocoder = vocode
 
     hop, sr = runner.cfg["hop_size"], runner.cfg["audio_sample_rate"]
@@ -687,10 +861,6 @@ def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str) -> dict:
 
     from xiaoicesing_io_tpu_torch.eval.metrics import f0_rmse_cents
     from xiaoicesing_io_tpu_torch.inference import val_vocoder as V
-    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
-    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
-    from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
-    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
     hop, sr = cfg["hop_size"], cfg["audio_sample_rate"]
     work.mkdir(parents=True)
@@ -710,12 +880,11 @@ def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str) -> dict:
 
     V._score_pair, V.get_pitch = score_pair, get_pitch
     try:
-        K1.launches = K2.launches = K3.launches = K4.launches = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         results = V.copy_synthesis([ds_wav, synth], cfg, work / "out", device="cuda")
         seconds = time.perf_counter() - t0
-        launches = {"lynx_conv_module": K1.launches, "fused_resblock_stage": K2.launches,
-                    "mel_spectrogram": K3.launches, "wavenet_block": K4.launches}
+        launches = launch_counts()
     finally:
         V._score_pair, V.get_pitch = score, pitch
 
@@ -793,6 +962,7 @@ def main(argv) -> int:
     k2 = check_k2()
     k4 = check_k4()
     k3 = check_k3()
+    variants = check_variants()
     if "--kernels-only" in argv:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
         return 0
@@ -807,6 +977,7 @@ def main(argv) -> int:
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    sweep = run_sampler_sweep(name_limit)
 
     kernels = [
         dict(name="lynx_conv_module", route="cuda",
@@ -825,6 +996,18 @@ def main(argv) -> int:
              source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",
              launches=copysyn["mel_spectrogram"], **k3),
+        dict(name="lynx_layer_fused", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/lynx_layer.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv2.py:132",
+             launches=sweep["lynx_layer_fused"], library_ms=None, **variants["K5"]),
+        dict(name="lynx_layer_fused_v3", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/lynx_layer.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv3.py:113",
+             launches=sweep["lynx_layer_fused_v3"], library_ms=None, **variants["K7"]),
+        dict(name="lynx_conv_tail", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/lynx_hybrid.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/lynx_hybrid.py:58",
+             launches=sweep["lynx_conv_tail"], library_ms=None, **variants["K8"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,8 @@ import torch
 
 from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
 from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
 from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
@@ -171,6 +173,121 @@ def test_lynx_denoiser_apply_on_card_matches_cpu(cuda):
         got = lynx_denoiser_apply(net.to(cuda), spec.to(cuda), step.to(cuda), cond.to(cuda))
         torch.cuda.synchronize()
     assert K1.launches == before + 2
+    _rel_close(got.cpu(), ref, tol=0.05, min_corr=0.999)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K7 (the whole strong_cond layer) and K8 (the hybrid conv tail)
+# ---------------------------------------------------------------------------
+
+LAYER_SHAPES = [
+    (1, 300, 256, 512, 31),     # a partial last row tile
+    (2, 1000, 256, 512, 31),    # two sequences: no halo may cross between them
+    (3, 77, 128, 256, 7),       # short kernel
+    (2, 150, 192, 384, 31),     # dim % 128 != 0: warps with one and two column fragments
+    (1, 5, 64, 128, 31),        # fewer rows than the halo, the narrowest width
+    (2, 4100, 256, 512, 31),    # K7: several tiles per work item, two blocks an SM
+    (3, 2500, 1024, 2048, 31),  # the main-path width, T off any bucket
+]
+
+
+def _bf16(rng, shape, device, std=1.0):
+    return torch.tensor(std * rng.standard_normal(shape), dtype=torch.float32,
+                        device=device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("entry", ["v2", "v3"])
+@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES)
+def test_lynx_layer_kernels_match_plain(cuda, entry, B, T, dim, inner, k):
+    rng = np.random.default_rng(6)
+    x, cond = _bf16(rng, (B, T, dim), cuda), _bf16(rng, (B, T, dim), cuda)
+    step = torch.tensor(rng.standard_normal((B, dim)), dtype=torch.float32, device=cuda)
+    params = _k1_params(rng, dim, inner, k, cuda)
+    fn = K5.lynx_layer_fused if entry == "v2" else K5.lynx_layer_fused_v3
+    counter = f"launches_{entry}"
+    before = getattr(K5, counter)
+    got = fn(x, cond, step, K5.prepare_layer_weights(*params), kernel_size=k)
+    torch.cuda.synchronize()
+    assert getattr(K5, counter) == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, dim)
+    _rel_close(got, K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k))
+
+
+@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES)
+def test_conv_tail_kernel_matches_plain(cuda, B, T, dim, inner, k):
+    rng = np.random.default_rng(7)
+    act = _bf16(rng, (B, T, inner), cuda, std=0.5)
+    params = _k1_params(rng, dim, inner, k, cuda)
+    before = K8.launches
+    got = K8.conv_tail(act, K1.prepare_weights(*params)[4:], kernel_size=k)
+    torch.cuda.synchronize()
+    assert K8.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, T, dim)
+    _rel_close(got, K8.conv_tail_plain(act, *params[4:], kernel_size=k))
+
+
+def test_lynx_variants_raise_instead_of_falling_back(cuda):
+    rng = np.random.default_rng(8)
+    x, cond = _bf16(rng, (1, 16, 128), cuda), _bf16(rng, (1, 16, 128), cuda)
+    step = torch.zeros(1, 128, device=cuda)
+    params = _k1_params(rng, 128, 256, 31, cuda)
+    weights = K5.prepare_layer_weights(*params)
+    counts = (K5.launches_v2, K5.launches_v3, K8.launches)
+    for fn in (K5.lynx_layer_fused, K5.lynx_layer_fused_v3):
+        with pytest.raises(TypeError, match="bf16"):
+            fn(x.float(), cond, step, weights)
+        with pytest.raises(TypeError, match="bf16"):
+            fn(x, cond.float(), step, weights)
+        with pytest.raises(ValueError, match="step"):
+            fn(x, cond, torch.zeros(2, 128, device=cuda), weights)
+        # weights that were not prepared
+        with pytest.raises(ValueError, match="prepare_layer_weights"):
+            fn(x, cond, step, params)
+        # widths the kernels do not take: dim % 64, dim > 1024, k > 33
+        for dim, k in ((96, 31), (1088, 31), (128, 35)):
+            xd, cd = _bf16(rng, (1, 16, dim), cuda), _bf16(rng, (1, 16, dim), cuda)
+            wd = K5.prepare_layer_weights(*_k1_params(rng, dim, 2 * dim, k, cuda))
+            with pytest.raises(ValueError, match="dim % 64"):
+                fn(xd, cd, torch.zeros(1, dim, device=cuda), wd, kernel_size=k)
+    tail = weights[4:]
+    with pytest.raises(TypeError, match="bf16"):
+        K8.conv_tail(torch.zeros(1, 16, 256, device=cuda), tail)
+    with pytest.raises(ValueError, match="prepare_layer_weights"):
+        K8.conv_tail(_bf16(rng, (1, 16, 256), cuda), params[4:])
+    with pytest.raises(ValueError, match="inner % 64"):
+        K8.conv_tail(_bf16(rng, (1, 16, 96), cuda),
+                     K1.prepare_weights(*_k1_params(rng, 128, 96, 31, cuda))[4:])
+    assert (K5.launches_v2, K5.launches_v3, K8.launches) == counts
+
+
+@pytest.mark.parametrize("options,module,counter", [
+    ({"fused_layer": True}, K5, "launches_v2"),
+    ({"fused_layer": "v3"}, K5, "launches_v3"),
+    ({"module_impl": "hybrid"}, K8, "launches"),
+])
+def test_lynx_denoiser_apply_variants_on_card_match_cpu(cuda, options, module, counter):
+    """The bf16 apply with K5, K7 or K8 on the card against the same apply
+    on the CPU (plain versions): the bar of the v1 apply above."""
+    from xiaoicesing_io_tpu_torch.models.backbones import build_backbone
+    from xiaoicesing_io_tpu_torch.models.backbones.lynx_cuda import lynx_denoiser_apply
+
+    torch.manual_seed(0)
+    M, H, C = 32, 64, 256
+    net = build_backbone(M, 1, "lynxnet", {"num_channels": C, "num_layers": 2,
+                                           "kernel_size": 31, "strong_cond": True},
+                         cond_dims=H).eval()
+    with torch.no_grad():
+        net.output_projection.weight.normal_(0.0, 0.05)
+    spec = torch.randn(2, 1, 384, M)
+    step = torch.tensor([30.0, 700.0])
+    cond = torch.randn(2, 384, H)
+    with torch.no_grad():
+        ref = lynx_denoiser_apply(net, spec, step, cond, **options)
+        before = getattr(module, counter)
+        got = lynx_denoiser_apply(net.to(cuda), spec.to(cuda), step.to(cuda), cond.to(cuda),
+                                  **options)
+        torch.cuda.synchronize()
+    assert getattr(module, counter) == before + 2
     _rel_close(got.cpu(), ref, tol=0.05, min_corr=0.999)
 
 

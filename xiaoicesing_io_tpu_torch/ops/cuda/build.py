@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so`` with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` at first use and bound with
-``ctypes``.  The hash covers the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  ``build_all`` starts one
+``ctypes``.  The hash covers the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded.  ``build_all`` starts one
 ``nvcc`` per source at once; the build log (``-Xptxas -v``: registers, shared
 memory, spills) is kept beside each library.
 """
@@ -25,7 +26,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("lynx_conv", "hifigan_stage", "wavenet_block", "mel_spec")
+SOURCES = ("lynx_conv", "hifigan_stage", "wavenet_block", "mel_spec", "lynx_layer",
+           "lynx_hybrid")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,6 +44,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -47,10 +47,7 @@ def lynx_conv_module_plain(x, ln_scale, ln_bias, w_in, b_in, dw_kernel, dw_bias,
     """The kernel's arithmetic in plain PyTorch: product inputs rounded to
     ``x``'s dtype, f32 accumulation and f32 elementwise work.  With bf16 ``x``
     that is the kernel; with f32 ``x`` (CPU only) the module is exact f32."""
-    B, T, dim = x.shape
     inner = w2.shape[0]
-    k = kernel_size
-    pad_l, pad_r = _pads(k)
     pd = x.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -61,15 +58,24 @@ def lynx_conv_module_plain(x, ln_scale, ln_bias, w_in, b_in, dw_kernel, dw_bias,
     b_in = b_in.float()
     g = h[..., inner:] + b_in[inner:]
     u = (h[..., :inner] + b_in[:inner]) * (g * torch.sigmoid(g))
-    u = F.pad(u, (0, 0, pad_l, pad_r))  # the conv's zero padding acts on inner rows
+    acc = dwconv_prelu(u, dw_kernel, dw_bias, alpha, kernel_size)
+    out = acc.to(pd).float() @ w2.to(pd).float() + b2.float()
+    return out.to(x.dtype)
+
+
+def dwconv_prelu(u, dw_kernel, dw_bias, alpha, kernel_size: int) -> torch.Tensor:
+    """The kernels' depthwise conv over time (f32 taps, the conv's zero
+    padding on ``u``'s rows), + bias, PReLU: ``[B, T, inner]`` f32."""
+    B, T, inner = u.shape
+    k = kernel_size
+    pad_l, pad_r = _pads(k)
+    u = F.pad(u.float(), (0, 0, pad_l, pad_r))
     dw = dw_kernel.reshape(k, inner).float()
-    acc = torch.zeros(B, T, inner, dtype=torch.float32, device=x.device)
+    acc = torch.zeros(B, T, inner, dtype=torch.float32, device=u.device)
     for tap in range(k):
         acc = acc + u[:, tap:tap + T] * dw[tap]
     acc = acc + dw_bias.float()
-    acc = torch.where(acc >= 0, acc, alpha.float() * acc)
-    out = acc.to(pd).float() @ w2.to(pd).float() + b2.float()
-    return out.to(x.dtype)
+    return torch.where(acc >= 0, acc, alpha.float() * acc)
 
 
 def prepare_weights(ln_scale, ln_bias, w_in, b_in, dw_kernel, dw_bias, alpha, w2, b2,
