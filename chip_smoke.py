@@ -15,30 +15,32 @@ Phases, each printed on its own line:
   6. the LYNXNet + rectified-flow configuration (``configs/acoustic.json``)
      at full width with random weights: one sample ``.ds``, every segment,
      through the port's ``DiffSingerAcousticInfer.run_inference`` and the
-     NSF-HiFiGAN vocoder (the launch counters are zeroed just before it and
-     read just after); the wav must be finite and of the right length, K1
-     must have launched once per layer per step per segment (6 x 20 x 10)
-     and K2 at least once.  Then one segment through the kernel
-     path and through the f32 module path: mel and wav must agree.  Then a
-     batched timing at B=4, T=2048, 20 Euler steps;
+     NSF-HiFiGAN vocoder in its default time-folded layout (the launch
+     counters are zeroed just before it and read just after); the wav must
+     be finite and of the right length, K1 must have launched once per layer
+     per step per segment (6 x 20 x 10), and per segment's vocoder call K2
+     exactly twice (stages 0 and 1) and K6 exactly 27 times (the ResBlock1
+     units of stages 2-4).  Then one segment through the kernel path and
+     through the f32 module path (the stock generator in f32): mel and wav
+     must agree.  Then a batched timing at B=4, T=2048, 20 Euler steps;
   7. the WaveNet + DDPM configuration (the same file with a 512 x 20 WaveNet,
      dilation cycle 4, and a linear 1000-step DDPM core, K_step 400, DDIM at
      speedup 10: 40 steps), at full width with random weights saved under the
      reference names (``diffusion.denoise_fn.*`` and the schedule buffers):
      the same ``.ds`` run, where K4 must launch 20 x 40 times per segment
-     and K2 at least once, the same kernel-path vs f32 check, and a
+     and K2 and K6 as in phase 6, the same kernel-path vs f32 check, and a
      batched timing at B=4, T=2048, 40 DDIM steps;
   8. vocoder copy-synthesis (``inference/val_vocoder.copy_synthesis`` on the
      card) with the random full-width vocoder of phase 6, on two files: the
      wav phase 6 rendered from the sample ``.ds`` and a synthetic 2048-frame
      (23.8 s) harmonic tone with vibrato around 220 Hz and noise at -40 dB,
      written at 22.05 kHz so that loading resamples it.  Each output wav must
-     be finite with frames*hop samples, K3 must launch once per file and K2
-     at least once; each file's K3-scored mel MAE must agree with the same
-     pair scored through K3's plain version within 1e-4, and the synthetic
-     clip's tracked f0 must be within 50 cents RMSE of its known curve, with
-     voicing agreement > 0.9.  Per-file stage times are printed.
-
+     be finite with frames*hop samples, K3 must launch once per file, K2
+     twice and K6 27 times per file; each file's K3-scored mel MAE must
+     agree with the same pair scored through K3's plain version within
+     1e-4, and the synthetic clip's tracked f0 must be within 50 cents RMSE
+     of its known curve, with voicing agreement > 0.9.  Per-file stage
+     times are printed;
   9. the sampler sweep (``tools/perf_sweep.py``, the cell lynx_variants):
      the shipped LYNXNet 1024 x 6 with random weights, B=4, T=2048, 50
      Euler steps from T_start 0.4, in every mode (module, v1, v2, v3,
@@ -48,6 +50,27 @@ Phases, each printed on its own line:
      denormed mel of v2, v3 and hybrid must agree with v1's within 5 % of
      its scale, corr > 0.999 (the module mode's is recorded).  Then ms per
      step for each mode.
+ 10. the vocoder sweep (``tools/perf_sweep.py vocoder``, the cell
+     vocoder_variants): the shipped NSF-HiFiGAN with random weights, a mel
+     ~ N(0, 1) [4, 2048, 128] and f0 = 220 Hz, in the folded layout at each
+     ``pallas_stages`` config (), (1,), (0,), (0, 1), (0, 1, 2), with the
+     launch counters zeroed just before each config's call and read just
+     after: K2 must launch len(stages) times and K6 9 x (5 - len(stages))
+     times, and nothing else.  Each config's wav must agree with ()'s within
+     2e-2, corr > 0.999.  The stock layout on the same weights and inputs
+     (K2 twice, no K6) must agree with (0, 1)'s at corr > 0.99.  Then ms per
+     call and audio-s/s of each.
+
+Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
+``resblock_unit`` against its plain version on the folded stage-2 unit with
+the widest taps (k 11, d 5: 27 + 7 folded taps, L = 128) at B=4 x 131072
+rows, a raw dilated unit at L = 256 (k 11, d 5, 16384 rows a sequence) and
+a folded unit at a T off the kernel's 128-row tile; then it times the 45
+ResBlock1 units of one random full-width folded generator at B=4, T=2048,
+stage by stage, against the plain version and the unfused cuDNN bf16 chain
+(the folded layout's arithmetic in the JAX package).  K6's ``ms``,
+``plain_ms`` and ``bound_ms`` are the sums over the 27 units of stages 2-4,
+which the wrapper's default sends to K6.
 
 Phase 5c (after phase 5b, so ``--kernels-only`` covers it) holds K5
 ``lynx_layer_fused``, K7 ``lynx_layer_fused_v3`` and K8 ``conv_tail``
@@ -76,10 +99,11 @@ steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
 ``bound_ms`` at the phase 3-5 shapes; K2's are the sum of its two stage
-calls, K4's the mean over its four dilations; ``launches`` are wrapper calls
-in the ``.ds`` run of the configuration that runs the kernel: phase 6 for K1
-and K2, phase 7 for K4; phase 8 for K3; phase 9, in the mode that runs it,
-for K5, K7 and K8).  The last line is ``{"ok": true,
+calls, K4's the mean over its four dilations, K6's the sum over the 27
+units of stages 2-4; ``launches`` are wrapper calls in the ``.ds`` run of
+the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
+for K4; phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
+K8).  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -159,6 +183,7 @@ def bound_ms(bytes_moved: float, bf16_flops: float, f32_flops: float = 0.0):
 def counters():
     """(name in the kernels line, wrapper module, counter attribute) of every
     kernel."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
     from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
@@ -169,7 +194,7 @@ def counters():
     return (("lynx_conv_module", K1, "launches"), ("fused_resblock_stage", K2, "launches"),
             ("mel_spectrogram", K3, "launches"), ("wavenet_block", K4, "launches"),
             ("lynx_layer_fused", K5, "launches_v2"), ("lynx_layer_fused_v3", K5, "launches_v3"),
-            ("lynx_conv_tail", K8, "launches"))
+            ("lynx_conv_tail", K8, "launches"), ("resblock_unit", K6, "launches"))
 
 
 def zero_launch_counts() -> None:
@@ -272,7 +297,7 @@ def check_k2(reps: int = 3) -> dict:
 
     from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 
-    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "stage_ms": []}
     by = "operations"
     for stage, (T, L) in enumerate(((T_TIME * 8, 256), (T_TIME * 64, 128))):
         x, w, b, specs = k2_inputs(B_TIME, T, L, seed=stage)
@@ -287,6 +312,7 @@ def check_k2(reps: int = 3) -> dict:
         log(f"[K2 stage {stage}] ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
             f"({by_s}) share_of_bound={bms / ms:.3f}")
         total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["stage_ms"].append(ms)
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["bound_ms"] += bms
@@ -502,6 +528,131 @@ def check_variants(reps: int = 10) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K6: one ResBlock1 unit of the time-folded vocoder
+# ---------------------------------------------------------------------------
+
+def k6_unit(B: int, T: int, C: int, k: int, d: int, F: int, seed: int = 0):
+    """A random unit of width C folded by F (F = 1: raw dilated taps) in the
+    kernel's operand types, its geometry, and a bf16 input [B, T/F, F*C]."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
+
+    rng = np.random.default_rng(seed)
+    w1, w2 = (rng.standard_normal((k, C, C)) * (0.5 / math.sqrt(k * C)) for _ in range(2))
+    b1, b2 = (rng.standard_normal(C) * 0.05 for _ in range(2))
+    f1 = fold_conv(w1.astype(np.float32), b1.astype(np.float32), F, dilation=d)
+    f2 = fold_conv(w2.astype(np.float32), b2.astype(np.float32), F)
+    weights = K6.prepare_unit_weights(f1[0], f1[1], f2[0], f2[1], torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, T // F, F * C, generator=g, device="cuda").to(torch.bfloat16)
+    return x, weights, dict(d1=f1[3], pad1_l=f1[2], d2=f2[3], pad2_l=f2[2])
+
+
+def nonzero_taps(w) -> int:
+    return int((w.float().abs().amax(dim=(1, 2)) > 0).sum().item())
+
+
+def k6_bound(rows: int, weights):
+    """One unit: the products of its taps that are not all zero, against the
+    bf16 input and output and the weights read once."""
+    w1, _, w2, _ = weights
+    L = w1.shape[-1]
+    taps = nonzero_taps(w1) + nonzero_taps(w2)
+    return 2 * rows * L * L * taps, rows * L * 2 * 2 + taps * L * L * 2 + 2 * L * 4
+
+
+def cudnn_bf16_unit(x, weights, d1, pad1_l, d2, pad2_l):
+    """The unit as unfused bf16 cuDNN convolutions (outputs rounded to bf16,
+    bias and residual added in bf16): the folded layout's arithmetic in the
+    JAX package (``nsf_fast._conv_folded``), timed beside K6."""
+    import torch.nn.functional as F
+
+    w1, b1, w2, b2 = weights
+    out = x
+    for w, b, d, p in ((w1, b1, d1, pad1_l), (w2, b2, d2, pad2_l)):
+        k = w.shape[0]
+        t = F.leaky_relu(out, 0.1).transpose(1, 2)
+        t = F.conv1d(F.pad(t, (p, (k - 1) * d - p)), w.permute(2, 1, 0), dilation=d)
+        out = t.transpose(1, 2) + b.to(x.dtype)
+    return x + out
+
+
+def check_k6(reps: int = 3) -> dict:
+    """Phase 5d: K6 against its plain version, then the 45 ResBlock1 units of
+    a random full-width folded generator at B=4, T=2048, stage by stage."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import FastNsfHifigan
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
+        Generator, NsfHifiganConfig,
+    )
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
+
+    errs = []
+    for label, shape in (
+            ("folded stage 2, k11 d5 (27 + 7 taps), L=128", (B_TIME, T_TIME * 128, 64, 11, 5, 2)),
+            ("raw stage 0, k11 d5, L=256", (B_TIME, T_TIME * 8, 256, 11, 5, 1)),
+            ("folded stage 3, k7 d3, L=128, off-tile T", (3, 4 * 4099, 32, 7, 3, 4))):
+        x, w, geometry = k6_unit(*shape, seed=len(errs))
+        got = K6.resblock_unit(x, *w, **geometry)
+        torch.cuda.synchronize()
+        ref = K6.resblock_unit_plain(x, *w, **geometry)
+        errs.append(compare(f"K6 resblock_unit {label} [B={x.shape[0]},T={x.shape[1]}]", got,
+                            ref))
+        del x, got, ref
+
+    vcfg = NsfHifiganConfig()
+    torch.manual_seed(0)
+    fast = FastNsfHifigan(Generator(vcfg).cuda(), torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    total = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0,
+             "dense_flop": 0.0}
+    stage_ms = []
+    samples = T_TIME
+    for i, (u, stage) in enumerate(zip(vcfg.upsample_rates, fast.stages)):
+        samples *= u
+        t = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0}
+        units = [unit for branch in stage["units"] for unit in branch]
+        L = units[0][0][0].shape[-1]
+        x = torch.randn(B_TIME, samples // stage["F"], L, generator=g, device="cuda")
+        x = x.to(torch.bfloat16)
+        rows = x.shape[0] * x.shape[1]
+        for weights, geometry in units:
+            t["ms"] += cuda_ms(lambda: K6.resblock_unit(x, *weights, **geometry), reps)
+            t["plain_ms"] += cuda_ms(lambda: K6.resblock_unit_plain(x, *weights, **geometry), 1)
+            t["cudnn_ms"] += cuda_ms(lambda: cudnn_bf16_unit(x, weights, **geometry), reps)
+            flop, nbytes = k6_bound(rows, weights)
+            t["flop"] += flop
+            t["bytes"] += nbytes
+            if i >= 2:
+                w1, _, w2, _ = weights
+                total["dense_flop"] += 2 * rows * L * L * (w1.shape[0] + w2.shape[0])
+        bms, by = bound_ms(t["bytes"], t["flop"])
+        log(f"[K6 stage {i}] {len(units)} units, L={L}, {rows} rows: ms={t['ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} cudnn_bf16_ms={t['cudnn_ms']:.4f} "
+            f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / t['ms']:.3f} "
+            f"tflop={t['flop'] / 1e12:.4f}")
+        stage_ms.append(t["ms"])
+        if i >= 2:  # the units the wrapper's default sends to K6
+            for key in t:
+                total[key] += t[key]
+        del x
+    bms, by = bound_ms(total["bytes"], total["flop"])
+    dense_ms = total["dense_flop"] / BF16_FLOPS * 1e3
+    log(f"[K6] stages 2-4, 27 units: ms={total['ms']:.4f} plain_ms={total['plain_ms']:.4f} "
+        f"cudnn_bf16_ms={total['cudnn_ms']:.4f} bound_ms={bms:.4f} ({by}, "
+        f"{total['flop'] / 1e12:.4f} TFLOP of non-zero taps; {dense_ms:.4f} ms counting the "
+        f"all-zero folded taps the kernel also computes) share_of_bound={bms / total['ms']:.3f}")
+    del fast
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs), "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "stage_ms": stage_ms}
+
+
 SWEEP_STEPS = 50
 SWEEP_MODE_KERNEL = {"v1": "lynx_conv_module", "v2": "lynx_layer_fused",
                      "v3": "lynx_layer_fused_v3", "hybrid": "lynx_conv_tail"}
@@ -561,6 +712,86 @@ def run_sampler_sweep(name_limit: str, reps: int = 2) -> dict:
     del sweep
     torch.cuda.empty_cache()
     return launches
+
+
+VOCODER_REPS = 3
+VOCODER_ATOL = 2e-2      # each folded config vs (), the JAX bar of the fused-stage test
+VOCODER_CORR = 0.999
+
+
+def run_vocoder_sweep(name_limit: str, k2_stage_ms, k6_stage_ms) -> None:
+    """Phase 10: the vocoder sweep at full size in every ``pallas_stages``
+    config, then the stock layout; the launch counters are zeroed just before
+    each checked call and read just after.  ``k2_stage_ms`` (stages 0, 1,
+    phase 4) and ``k6_stage_ms`` (stages 0-4, phase 5d) are the kernels'
+    times alone, which split the default config's call by stage."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.tools import perf_sweep
+
+    t0 = time.perf_counter()
+    sweep = perf_sweep.VocoderSweep.random(device="cuda", B=B_TIME, T=T_TIME)
+    h = sweep.generator.config
+    stages = len(h.upsample_rates)
+    units = len(h.resblock_kernel_sizes) * len(h.resblock_dilation_sizes[0])
+    log(f"[setup vocoder_variants] shipped NSF-HiFiGAN {h.upsample_initial_channel} ch, "
+        f"random weights, mel ~ N(0, 1) [{B_TIME}, {T_TIME}, {h.num_mels}], f0 "
+        f"{perf_sweep.VOCODER_F0} Hz; built in {time.perf_counter() - t0:.1f}s")
+    wavs = {}
+    for config in perf_sweep.VOCODER_CONFIGS + (None,):
+        name = "stock" if config is None else f"stages={config}"
+        want = ({"fused_resblock_stage": 2, "resblock_unit": 0} if config is None else
+                {"fused_resblock_stage": len(config),
+                 "resblock_unit": units * (stages - len(config))})
+        if config is not None:
+            sweep.folded(config)  # fold the weights outside the counted call
+        zero_launch_counts()
+        wav = sweep.run(config)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"[vocoder {name}] launches {counts}; expected {want}, every other kernel 0")
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise AssertionError(f"vocoder {name} did not launch its kernels as expected")
+        if wav.shape != (B_TIME, T_TIME * h.hop_size) or not torch.isfinite(wav).all():
+            raise AssertionError(f"vocoder {name}: wav {tuple(wav.shape)}, finite "
+                                 f"{bool(torch.isfinite(wav).all())}")
+        wavs[config] = wav
+    ref = wavs[()]
+    for config in perf_sweep.VOCODER_CONFIGS[1:]:
+        err = (wavs[config] - ref).abs().max().item()
+        c = corr(wavs[config], ref)
+        log(f"[check] vocoder wav, stages={config} vs (): max_abs_err={err:.6g} corr={c:.8f} "
+            f"(tolerance: err <= {VOCODER_ATOL}, corr > {VOCODER_CORR})")
+        if not (err <= VOCODER_ATOL and c > VOCODER_CORR):
+            raise AssertionError(f"the vocoder's stages={config} wav disagrees with ()'s")
+    err = (wavs[None] - wavs[(0, 1)]).abs().max().item()
+    c = corr(wavs[None], wavs[(0, 1)])
+    log(f"[check] vocoder wav, stock layout vs folded (0, 1): max_abs_err={err:.6g} corr={c:.8f} "
+        f"(tolerance: corr > {WAV_TOL_CORR})")
+    if not c > WAV_TOL_CORR:
+        raise AssertionError("the stock layout's wav disagrees with the folded layout's")
+    del wavs, ref
+    times = perf_sweep.sweep_vocoder(sweep=sweep, reps=VOCODER_REPS)
+    log(f"[timing vocoder_variants] card={name_limit} B={B_TIME} T={T_TIME} audio_s="
+        f"{sweep.audio_s:.3f} (mean of {VOCODER_REPS}): "
+        + " ".join(f"{k.replace('stages=', '').replace(' ', '')}_ms={v['ms']:.4f}"
+                   for k, v in times.items()))
+    ms = {k: v["ms"] for k, v in times.items()}
+    # K2 on folded stage 2 has no timing of its own: K6's stage 2 plus the
+    # (0, 1, 2) - (0, 1) difference of whole calls
+    k2_stage2 = k6_stage_ms[2] + ms["stages=(0, 1, 2)"] - ms["stages=(0, 1)"]
+    resblocks = k2_stage_ms[0] + k2_stage_ms[1] + sum(k6_stage_ms[2:])
+    log(f"[split vocoder_variants] default config (0, 1), {ms['stages=(0, 1)']:.4f} ms a call: "
+        f"resblocks of stage 0 (K2) {k2_stage_ms[0]:.4f}, stage 1 (K2) {k2_stage_ms[1]:.4f}, "
+        + ", ".join(f"stage {i} (K6) {k6_stage_ms[i]:.4f}" for i in range(2, len(k6_stage_ms)))
+        + f"; the rest (source, conv_pre, upsampling, noise convs, conv_post, adds) "
+          f"{ms['stages=(0, 1)'] - resblocks:.4f}.  K6 against K2 per stage (kernel alone; "
+          f"call differences in brackets): stage 0 {k6_stage_ms[0]:.4f} vs {k2_stage_ms[0]:.4f} "
+          f"({ms['stages=(0,)'] - ms['stages=()']:+.4f}), stage 1 {k6_stage_ms[1]:.4f} vs "
+          f"{k2_stage_ms[1]:.4f} ({ms['stages=(1,)'] - ms['stages=()']:+.4f}), stage 2 "
+          f"{k6_stage_ms[2]:.4f} vs {k2_stage2:.4f} (from the calls)")
+    del sweep
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +868,15 @@ def corr(a, b) -> float:
     import torch
 
     return torch.corrcoef(torch.stack([a.flatten().float(), b.flatten().float()]))[0, 1].item()
+
+
+def vocoder_calls(vocoder) -> dict:
+    """The K2 and K6 launches of one call of the wrapper's folded vocoder:
+    one K2 call per fused stage, one K6 call per other ResBlock1 unit (2 and
+    27 for the shipped vocoder at the default stages 0 and 1)."""
+    stages = vocoder.fast.stages
+    return {"fused_resblock_stage": sum("fused" in st for st in stages),
+            "resblock_unit": sum(len(branch) for st in stages for branch in st.get("units", ()))}
 
 
 def drive_main_path(runner, out_dir: Path) -> tuple:
@@ -780,9 +1020,10 @@ def run_configuration(label: str, work: Path, overrides, name_limit: str,
                       kernels: dict) -> tuple:
     """Phases 6 and 7: a random full-width experiment, the ``.ds`` run, the
     kernel-path vs f32 check and the batched timing of one configuration;
-    returns the ``.ds`` run's launch counts, the configuration and the wav.  The denoiser's kernel (K1 for
-    LYNXNet, K4 for WaveNet) must launch once per layer per sampler step per
-    segment, K2 at least once."""
+    returns the ``.ds`` run's launch counts, the configuration, the wav and
+    the vocoder's launches per call.  The denoiser's kernel (K1 for LYNXNet,
+    K4 for WaveNet) must launch once per layer per sampler step per segment,
+    K2 and K6 as :func:`vocoder_calls` says per segment."""
     import torch
 
     from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
@@ -806,17 +1047,19 @@ def run_configuration(label: str, work: Path, overrides, name_limit: str,
         steps = cfg["sampling_steps"]
     launches, segments, wav = drive_main_path(runner, work / "out")
     denoiser = "wavenet_block" if runner.backbone_type == "wavenet" else "lynx_conv_module"
-    want = len(runner.model.backbone.residual_layers) * steps * segments
-    log(f"[ds {label}] {denoiser}: {launches[denoiser]} launches, expected {want} "
-        f"(layers x {steps} steps x {segments} segments); fused_resblock_stage: "
-        f"{launches['fused_resblock_stage']}")
-    if launches[denoiser] != want or launches["fused_resblock_stage"] <= 0:
+    want = {denoiser: len(runner.model.backbone.residual_layers) * steps * segments}
+    want.update({k: v * segments for k, v in vocoder_calls(runner.vocoder).items()})
+    log(f"[ds {label}] launches {', '.join(f'{k}: {launches[k]}' for k in want)}; expected "
+        f"{want} (layers x {steps} steps x {segments} segments; per segment's vocoder call "
+        f"{vocoder_calls(runner.vocoder)})")
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"the {label} path did not launch its kernels as expected")
     check_against_f32(runner)
     batched_timing(runner, name_limit, label, steps, kernels)
+    per_call = vocoder_calls(runner.vocoder)
     del runner
     torch.cuda.empty_cache()
-    return launches, cfg, wav
+    return launches, cfg, wav, per_call
 
 
 # ---------------------------------------------------------------------------
@@ -852,9 +1095,10 @@ def synthetic_clip(path: Path, hop: int, sr: int, frames: int = K3_FRAMES, seed:
     return f0_at(np.arange(frames) * hop / sr)
 
 
-def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str) -> dict:
+def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str, per_call: dict) -> dict:
     """Phase 8: ``copy_synthesis`` on the card (the launch counters are zeroed
-    just before it and read just after); returns its launch counts."""
+    just before it and read just after); ``per_call`` is the vocoder's K2 and
+    K6 launches per call.  Returns its launch counts."""
     import numpy as np
     import torch
     from scipy.io import wavfile
@@ -888,9 +1132,10 @@ def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str) -> dict:
     finally:
         V._score_pair, V.get_pitch = score, pitch
 
-    log(f"[copysyn] launches {launches}; expected mel_spectrogram 2 (one per file), "
-        f"fused_resblock_stage >= 1")
-    if launches["mel_spectrogram"] != 2 or launches["fused_resblock_stage"] < 1:
+    want = {"mel_spectrogram": 2, **{k: 2 * v for k, v in per_call.items()}}
+    log(f"[copysyn] launches {launches}; expected {want} (two files: one K3 call and one "
+        f"vocoder call each)")
+    if any(launches[k] != v for k, v in want.items()):
         raise AssertionError("copy-synthesis did not launch its kernels as expected")
     audio_s = 0.0
     for res, (extractor, wav, rec, mel, device), (f0, uv) in zip(results, pairs, pitches):
@@ -963,6 +1208,8 @@ def main(argv) -> int:
     k4 = check_k4()
     k3 = check_k3()
     variants = check_variants()
+    k6 = check_k6()
+    k2_stage_ms, k6_stage_ms = k2.pop("stage_ms"), k6.pop("stage_ms")
     if "--kernels-only" in argv:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
         return 0
@@ -970,14 +1217,15 @@ def main(argv) -> int:
     work = ROOT / ".work" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        lynx, lynx_cfg, ds_wav = run_configuration("lynx_reflow", work / "lynx", None,
-                                                   name_limit, {"K1": k1, "K2": k2})
-        wavenet, _, _ = run_configuration("wavenet_ddpm", work / "wavenet", WAVENET_DDPM,
-                                          name_limit, {"K4": k4, "K2": k2})
-        copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit)
+        lynx, lynx_cfg, ds_wav, per_call = run_configuration(
+            "lynx_reflow", work / "lynx", None, name_limit, {"K1": k1, "K2": k2, "K6": k6})
+        wavenet, _, _, _ = run_configuration("wavenet_ddpm", work / "wavenet", WAVENET_DDPM,
+                                             name_limit, {"K4": k4, "K2": k2, "K6": k6})
+        copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sweep = run_sampler_sweep(name_limit)
+    run_vocoder_sweep(name_limit, k2_stage_ms, k6_stage_ms)
 
     kernels = [
         dict(name="lynx_conv_module", route="cuda",
@@ -1008,6 +1256,10 @@ def main(argv) -> int:
              source="xiaoicesing_io_tpu_torch/csrc/lynx_hybrid.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/lynx_hybrid.py:58",
              launches=sweep["lynx_conv_tail"], library_ms=None, **variants["K8"]),
+        dict(name="resblock_unit", route="cuda",
+             source="xiaoicesing_io_tpu_torch/csrc/hifigan_resblock.cu",
+             replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_resblock.py:105",
+             launches=lynx["resblock_unit"], library_ms=None, **k6),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
 from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
 from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
@@ -112,6 +113,110 @@ def test_resblock_stage_kernel_matches_plain(cuda, L, T, kernels, dils):
     assert K2.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     _rel_close(got, K2.fused_resblock_stage_plain(x, w, b, specs))
+
+
+# ---------------------------------------------------------------------------
+# K6: one ResBlock1 unit, raw dilated taps or time-folded taps
+# ---------------------------------------------------------------------------
+
+def _unit(rng, C, k, d, F, device):
+    """Unit weights of width C folded by F (F = 1: the raw dilated taps) in
+    the kernel's operand types, and their geometry."""
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
+
+    w1, w2 = (0.1 * rng.standard_normal((k, C, C)) / np.sqrt(k) for _ in range(2))
+    b1, b2 = (0.1 * rng.standard_normal(C) for _ in range(2))
+    f1 = fold_conv(w1.astype(np.float32), b1.astype(np.float32), F, dilation=d)
+    f2 = fold_conv(w2.astype(np.float32), b2.astype(np.float32), F)
+    weights = K6.prepare_unit_weights(f1[0], f1[1], f2[0], f2[1], torch.bfloat16, device)
+    return weights, dict(d1=f1[3], pad1_l=f1[2], d2=f2[3], pad2_l=f2[2])
+
+
+@pytest.mark.parametrize("B,T,C,k,d,F", [
+    (2, 1000, 64, 11, 5, 2),    # folded stage 2: 27 + 7 taps at L = 128, T off the tile
+    (2, 777, 32, 7, 3, 4),      # folded stage 3
+    (1, 300, 16, 3, 1, 8),      # folded stage 4: L = 128
+    (2, 300, 256, 11, 5, 1),    # raw dilated taps at L = 256 (stage 0): reach 50 and 10
+    (2, 257, 128, 7, 3, 1),     # raw, L = 128 (stage 1)
+    (3, 5, 128, 11, 5, 1),      # fewer rows than the halo
+    (2, 200, 48, 3, 1, 1),      # three column fragments: warps sit out
+    (2, 150, 192, 3, 5, 1),     # L % 32 == 16 at the 80-row tile
+    (1, 130, 512, 3, 5, 1),     # the widest: 64-row tiles, four fragments a warp
+])
+def test_resblock_unit_kernel_matches_plain(cuda, B, T, C, k, d, F):
+    rng = np.random.default_rng(9)
+    weights, geometry = _unit(rng, C, k, d, F, cuda)
+    x = _bf16(rng, (B, T // F, F * C), cuda)
+    before = K6.launches
+    got = K6.resblock_unit(x, *weights, **geometry)
+    torch.cuda.synchronize()
+    assert K6.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _rel_close(got, K6.resblock_unit_plain(x, *weights, **geometry))
+
+
+def test_resblock_unit_raises_instead_of_falling_back(cuda):
+    rng = np.random.default_rng(10)
+    weights, geometry = _unit(rng, 128, 3, 1, 1, cuda)
+    x = _bf16(rng, (1, 64, 128), cuda)
+    before = K6.launches
+    with pytest.raises(TypeError, match="bf16"):
+        K6.resblock_unit(x.float(), *weights, **geometry)
+    # taps that were not prepared: f32, a non-contiguous view, f32 biases missing
+    w1, b1, w2, b2 = weights
+    with pytest.raises(ValueError, match="prepare_unit_weights"):
+        K6.resblock_unit(x, w1.float(), b1, w2, b2, **geometry)
+    with pytest.raises(ValueError, match="prepare_unit_weights"):
+        K6.resblock_unit(x, w1.transpose(1, 2), b1, w2, b2, **geometry)
+    with pytest.raises(ValueError, match="prepare_unit_weights"):
+        K6.resblock_unit(x, w1, b1.to(torch.bfloat16), w2, b2, **geometry)
+    # widths the kernel does not take
+    for C in (120, 640):
+        wc, gc = _unit(rng, C, 3, 1, 1, cuda)
+        with pytest.raises(ValueError, match="C % 16"):
+            K6.resblock_unit(_bf16(rng, (1, 16, C), cuda), *wc, **gc)
+    # reaches past the staged halos: 14 * 5 = 70 in the first conv, 2 * 9 = 18 in the second
+    w_far, g_far = _unit(rng, 128, 15, 5, 1, cuda)
+    with pytest.raises(ValueError, match="reach"):
+        K6.resblock_unit(x, *w_far, **g_far)
+    with pytest.raises(ValueError, match="reach"):
+        K6.resblock_unit(x, *weights, **dict(geometry, d2=9, pad2_l=9))
+    assert K6.launches == before
+
+
+def test_folded_vocoder_on_card(cuda, tmp_path):
+    """A narrow random vocoder through the wrapper's default folded layout on
+    the card: K2 on stages 0 and 1, K6 on the 27 units of stages 2-4; the wav
+    against the f32 stock module path on the card (corr > 0.99, the bar of
+    ``chip_smoke.py``)."""
+    import json
+
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
+        Generator, NsfHifiganConfig,
+    )
+    from xiaoicesing_io_tpu_torch.models.vocoders.wrapper import NsfHifiGAN
+
+    vcfg = dict(num_mels=128, sampling_rate=44100, hop_size=512, n_fft=2048, win_size=2048,
+                fmin=40, fmax=16000, upsample_rates=[8, 8, 2, 2, 2],
+                upsample_kernel_sizes=[16, 16, 4, 4, 4], upsample_initial_channel=64,
+                resblock="1", resblock_kernel_sizes=[3, 7, 11],
+                resblock_dilation_sizes=[[1, 3, 5]] * 3)
+    torch.manual_seed(0)
+    torch.save({"generator": Generator(NsfHifiganConfig.from_json(vcfg)).state_dict()},
+               tmp_path / "model.ckpt")
+    (tmp_path / "config.json").write_text(json.dumps(vcfg))
+    voc = NsfHifiGAN({"vocoder_ckpt": str(tmp_path / "model.ckpt"), "mel_base": "e"},
+                     device="cuda")
+    rng = np.random.default_rng(11)
+    mel = torch.tensor(rng.standard_normal((2, 300, 128)) - 3.0, dtype=torch.float32, device=cuda)
+    f0 = torch.tensor(rng.uniform(100, 400, (2, 300)), dtype=torch.float32, device=cuda)
+    k2, k6 = K2.launches, K6.launches
+    wav = voc.spec2wav_torch(mel, f0)
+    torch.cuda.synchronize()
+    assert (K2.launches - k2, K6.launches - k6) == (2, 27)
+    ref = voc.spec2wav_torch(mel, f0, _f32_module=True)
+    assert wav.shape == ref.shape == (2, 300 * 512) and torch.isfinite(wav).all()
+    assert torch.corrcoef(torch.stack([wav.flatten(), ref.flatten()]))[0, 1] > 0.99
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):

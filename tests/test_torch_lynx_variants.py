@@ -294,16 +294,40 @@ def test_sweep_modes_agree(capsys):
                 if ln.startswith("sampler ")]) == len(perf_sweep.MODES)
 
 
-def test_sweep_cli_sets_and_vocoder():
+def test_sweep_cli_sets_and_vocoder(capsys):
+    """The CLI's sets, and the vocoder sweep at a tiny size on the CPU: one
+    line per ``pallas_stages`` config and one for the stock layout.  Without
+    a device both sweeps ask for CUDA."""
     from xiaoicesing_io_tpu_torch.tools import perf_sweep
 
     assert set(perf_sweep.SETS["all"]) == set(perf_sweep.MODES)
     assert perf_sweep.SETS["base"] == ("module", "v1", "v2")
-    with pytest.raises(NotImplementedError, match="time-folded"):
-        perf_sweep.main(["vocoder"])
+    assert perf_sweep.VOCODER_CONFIGS == ((), (1,), (0,), (0, 1), (0, 1, 2))
+    capsys.readouterr()
+    assert perf_sweep.main(["vocoder", "--batch", "1", "--frames", "16", "--reps", "1",
+                            "--device", "cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("vocoder ")]
+    assert [ln.split(":")[0] for ln in lines] == [
+        f"vocoder stages={c}" for c in perf_sweep.VOCODER_CONFIGS] + ["vocoder stock"]
+    assert all("ms per call" in ln and "audio-s/s" in ln for ln in lines)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             perf_sweep.main(["sampler", "v3", "--frames", "16", "--steps", "1"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            perf_sweep.main(["vocoder", "--frames", "16"])
+
+
+def test_vocoder_sweep_configs_agree():
+    """At a tiny size on the CPU (f32): every ``pallas_stages`` config gives
+    the wav of ``()``, and the stock layout the same wav."""
+    from xiaoicesing_io_tpu_torch.tools import perf_sweep
+
+    sweep = perf_sweep.VocoderSweep.random(device="cpu", B=1, T=8)
+    ref = sweep.run(())
+    assert ref.shape == (1, 8 * 512) and ref.abs().max() > 1e-3
+    for stages in perf_sweep.VOCODER_CONFIGS[1:] + (None,):
+        np.testing.assert_allclose(sweep.run(stages).numpy(), ref.numpy(), atol=2e-5, rtol=0,
+                                   err_msg=str(stages))
 
 
 def test_sweep_v2_matches_jax_sampler():

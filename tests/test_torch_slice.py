@@ -255,7 +255,8 @@ import xiaoicesing_io_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep"):
+for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep",
+             "ops.cuda.hifigan_resblock", "models.vocoders.nsf_fast"):
     assert pkg.__name__ + "." + name in names, name
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -264,7 +265,7 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 52
+    assert int(out.stdout.split()[-1]) >= 54
 
 
 def test_entry_points_default_to_cuda(exp_dir):
@@ -302,10 +303,11 @@ def test_shipped_defaults_match_yaml():
 
 @pytest.mark.parametrize("initial,stages", [(32, (0, 1)), (256, (0, 1)), (512, (0, 1))])
 def test_vocoder_kernel_stages_follow_width(tmp_path, initial, stages):
-    """The vocoder sends stages 0 and 1 through the resblock-stage kernel
-    whatever their width (initial / 2, initial / 4), with their weights
-    prepared once; on the CPU that path (the plain version, f32) gives the
-    f32 module path's wav."""
+    """The stock layout (``use_folded_vocoder: false``) sends stages 0 and 1
+    through the resblock-stage kernel whatever their width (initial / 2,
+    initial / 4), with their weights prepared once; on the CPU that path (the
+    plain version, f32) gives the f32 module path's wav.  The folded layout,
+    the default, is held in ``tests/test_torch_nsf_fast.py``."""
     from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
         Generator, NsfHifiganConfig,
     )
@@ -316,7 +318,8 @@ def test_vocoder_kernel_stages_follow_width(tmp_path, initial, stages):
     torch.save({"generator": Generator(NsfHifiganConfig.from_json(vcfg)).state_dict()},
                tmp_path / "model.ckpt")
     (tmp_path / "config.json").write_text(json.dumps(vcfg))
-    voc = NsfHifiGAN({"vocoder_ckpt": str(tmp_path / "model.ckpt")}, device="cpu")
+    voc = NsfHifiGAN({"vocoder_ckpt": str(tmp_path / "model.ckpt"), "use_folded_vocoder": False},
+                     device="cpu")
     assert tuple(voc.stages) == stages
     for i, (weights, biases, specs) in voc.stages.items():
         width = initial >> (i + 1)

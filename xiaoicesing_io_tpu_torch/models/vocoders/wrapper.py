@@ -1,13 +1,23 @@
 """NSF-HiFiGAN vocoder wrapper: load ``model.ckpt`` + ``config.json``, check the
 mel parameters, ``spec2wav``.
 
-Counterpart of the JAX package's ``NsfHifiGAN`` on the stock generator layout.
-The checkpoint is a reference NSF-HiFiGAN ``model.ckpt`` (``{"generator":
-state_dict}`` or a bare state dict); weight-norm factors are merged if present.
-On the card the generator computes in bf16 with the resblock-stage kernel on
-stages 0 and 1 of a ResBlock1 generator, whatever their width (the kernel
-raises for a width it does not take); on the CPU in f32, with the kernel's
-plain version on those stages.
+Counterpart of the JAX package's ``NsfHifiGAN``.  The checkpoint is a
+reference NSF-HiFiGAN ``model.ckpt`` (``{"generator": state_dict}`` or a bare
+state dict); weight-norm factors are merged if present.  The config keys are
+the JAX wrapper's, with its defaults:
+
+* ``use_folded_vocoder`` (default true): the time-folded layout
+  (:class:`~.nsf_fast.FastNsfHifigan`), whose ResBlock1 stages listed in
+  ``vocoder_pallas_stages`` (default ``[0, 1]``, on the CPU too) run the
+  resblock-stage kernel (K2) and whose other ResBlock1 units run the
+  resblock-unit kernel (K6); a ResBlock2 generator has no stage kernel, so
+  its default is ``[]``;
+* ``use_folded_vocoder: false``: the stock generator layout, with K2 on
+  stages 0 and 1 of a ResBlock1 generator.
+
+``vocoder_pallas_tile`` is a TPU tile size and is not read.  On the card the
+vocoder computes in bf16 with the kernels (which raise for a width they do
+not take); on the CPU in f32, with their plain versions.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 
 from ...utils import resolve_device
 from . import register_vocoder
+from .nsf_fast import FastNsfHifigan
 from .nsf_hifigan import Generator, NsfHifiganConfig
 
 
@@ -63,7 +74,16 @@ class NsfHifiGAN:
         self._check_params()
         on_card = self.device.type == "cuda"
         self.dtype = torch.bfloat16 if on_card else torch.float32
-        self.stages = self.generator.prepare_stages(self.dtype)
+        self.fast = None
+        self.stages = {}
+        if cfg.get("use_folded_vocoder", True):
+            default = (0, 1) if self.vcfg.resblock == "1" else ()
+            self.fast = FastNsfHifigan(
+                self.generator, self.dtype,
+                pallas_stages=tuple(cfg.get("vocoder_pallas_stages", default)),
+                device=self.device)
+        else:
+            self.stages = self.generator.prepare_stages(self.dtype)
 
     def _check_params(self):
         pairs = [
@@ -81,15 +101,17 @@ class NsfHifiGAN:
                        generator: Optional[torch.Generator] = None, *,
                        _f32_module: bool = False) -> torch.Tensor:
         """mel ``[B, T, M]`` (log10 or ln per ``mel_base``), f0 ``[B, T]`` on the
-        vocoder's device -> wav ``[B, T*hop]`` f32.  ``_f32_module`` runs every
-        stage's resblocks as f32 modules: the reference that ``chip_smoke.py``
-        holds the bf16 kernel path against."""
+        vocoder's device -> wav ``[B, T*hop]`` f32.  ``_f32_module`` runs the
+        stock generator with every stage's resblocks as f32 modules: the
+        reference that ``chip_smoke.py`` holds the bf16 kernel paths against."""
         mel_base = self.cfg.get("mel_base", 10)
         if mel_base != "e":
             assert mel_base in (10, "10"), "mel_base must be 'e', '10' or 10."
             mel = 2.30259 * mel  # log10 -> ln
         if _f32_module:
             return self.generator(mel, f0, generator=generator, dtype=torch.float32, stages={})
+        if self.fast is not None:
+            return self.fast(mel, f0, generator=generator)
         return self.generator(mel, f0, generator=generator, dtype=self.dtype,
                               stages=self.stages)
 

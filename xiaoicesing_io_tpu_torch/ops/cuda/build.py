@@ -27,7 +27,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("lynx_conv", "hifigan_stage", "wavenet_block", "mel_spec", "lynx_layer",
-           "lynx_hybrid")
+           "lynx_hybrid", "hifigan_resblock")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
