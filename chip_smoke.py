@@ -6,12 +6,22 @@
 Phases, each printed on its own line:
   1. the card (name and power limit, from nvidia-smi);
   2. the build of every CUDA kernel from ``xiaoicesing_io_tpu_torch/csrc``;
-  3. K1 ``lynx_conv_module`` against its plain PyTorch version at the
-     LYNXNet path's shape (B=4, T=2048, dim 1024, inner 2048, k 31; bf16);
+  3. K1 ``lynx_conv_module`` against its plain PyTorch version at three edge
+     shapes (T off the 128-row tile and the conv's 64-row block, k 31, 32
+     and 3, dim 1024 and 256) and at the LYNXNet path's shape (B=4, T=2048,
+     dim 1024, inner 2048, k 31; bf16); at the latter its time, the time of
+     its two products as cuBLAS bf16 products (``gemm_library_ms``, the
+     yardstick of the GEMM core ``csrc/sm90_gemm.cuh``), the host
+     microseconds per wrapper call and the device time of each of its passes
+     (``torch.profiler``);
   4. K2 ``fused_resblock_stage`` against its plain version at vocoder stages 0
      and 1 of the same batch (L=256 at T*8 rows, L=128 at T*64 rows; bf16);
-  5. K4 ``wavenet_block`` against its plain version at the WaveNet path's
-     shape (B=4, T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8;
+  5. K4 ``wavenet_block`` against its plain version at three edge shapes (T
+     off the tile, d 64, C 192 and 256) and at the WaveNet path's shape (B=4,
+     T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8; its
+     ``gemm_library_ms`` (the three tap products and the output product as
+     cuBLAS bf16 products), host microseconds per call and per-launch device
+     times as for K1;
   6. the LYNXNet + rectified-flow configuration (``configs/acoustic.json``)
      at full width with random weights: one sample ``.ds``, every segment,
      through the port's ``DiffSingerAcousticInfer.run_inference`` and the
@@ -95,6 +105,14 @@ ulp (0.4 %) on a few elements; K4's plain version is the unfused bf16 chain,
 which also rounds the conv output to bf16 before the gating.  The bf16 kernel
 path against the f32 path compounds bf16 rounding over the layers and
 steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
+
+Since the redesign of K1 and K4 on the Hopper GEMM core, phases 3 and 5
+also cover the edge shapes above and print ``gemm_library_ms``, the host
+cost per call and the per-pass device split; K1's and K4's entries in the
+kernels line carry ``gemm_library_ms`` and ``host_us``.  Phases 6 and 7
+print the device's busy share of ``synthesize`` and phase 9 that of the
+``module`` and ``v1`` sweep calls: the kernel time of one call in a
+device-only ``torch.profiler`` window over the host time of the same work.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
@@ -238,24 +256,91 @@ def k1_bound(B, T, dim=1024, inner=2048, k=31):
     return bound_ms(nbytes, mm, conv)
 
 
+def _kernel_us(fn, calls: int) -> dict:
+    """Device microseconds per call of each kernel (or copy) ``fn`` launches,
+    from a device-only ``torch.profiler`` window over ``calls`` calls (with
+    host activity on too, the trace undercounts the kernels launched through
+    ctypes); the entries without host time are the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls for e in prof.key_averages()
+            if e.self_cpu_time_total == 0 and e.self_device_time_total > 0}
+
+
+def device_split(fn, calls: int = 10) -> str:
+    """Device microseconds per call of each kernel ``fn`` launches; "not
+    measured" when the trace holds no device time."""
+    parts = _kernel_us(fn, calls)
+    if not parts:
+        return "not measured (no device time in the trace)"
+    return "; ".join(f"{name[:90]}: {us:.1f} us"
+                     for name, us in sorted(parts.items(), key=lambda kv: -kv[1]))
+
+
+def device_busy_ms(fn) -> float:
+    """Device milliseconds of the kernels and copies of one call of ``fn``
+    (their sum: one stream, so they do not overlap); 0 when not measured."""
+    return sum(_kernel_us(fn, 1).values()) / 1e3
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds per call of a wrapper, the device left running: the
+    enqueue alone (checks, tensor maps, allocation, the ctypes call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+# K1's edge shapes: T off the 128-row tile and the conv's 64-row block, odd and even kernels
+K1_EDGES = ((1, 37, 1024, 2048, 31), (4, 2049, 1024, 2048, 32), (1, 1000, 256, 512, 3))
+
+
 def check_k1(reps: int = 20) -> dict:
     import torch
 
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
 
+    errs = []
+    for B, T, dim, inner, k in K1_EDGES:
+        x, params = k1_inputs(B, T, dim, inner, k, seed=T)
+        got = K1.lynx_conv_module(x, K1.prepare_weights(*params), kernel_size=k)
+        torch.cuda.synchronize()
+        errs.append(compare(f"K1 lynx_conv_module [B={B},T={T},dim={dim},inner={inner},k={k}]",
+                            got, K1.lynx_conv_module_plain(x, *params, kernel_size=k)))
     B, T, k = B_TIME, T_TIME, 31
     x, params = k1_inputs(B, T)
     weights = K1.prepare_weights(*params)
     got = K1.lynx_conv_module(x, weights, kernel_size=k)
     torch.cuda.synchronize()
     ref = K1.lynx_conv_module_plain(x, *params, kernel_size=k)
-    err = compare("K1 lynx_conv_module [B=4,T=2048,dim=1024,inner=2048,k=31]", got, ref)
+    errs.append(compare("K1 lynx_conv_module [B=4,T=2048,dim=1024,inner=2048,k=31]", got, ref))
     ms = cuda_ms(lambda: K1.lynx_conv_module(x, weights, kernel_size=k), reps)
     plain_ms = cuda_ms(lambda: K1.lynx_conv_module_plain(x, *params, kernel_size=k), 3)
+    # the yardstick of the GEMM core: the module's two products as cuBLAS bf16 products
+    xn, act = x.reshape(B * T, -1), torch.zeros(B * T, 2048, dtype=torch.bfloat16, device="cuda")
+    w_in, w2 = weights[2], weights[7]
+    gemm_ms = cuda_ms(lambda: (torch.matmul(xn, w_in), torch.matmul(act, w2)), reps)
+    us = host_us(lambda: K1.lynx_conv_module(x, weights, kernel_size=k))
+    log(f"[K1 split] {device_split(lambda: K1.lynx_conv_module(x, weights, kernel_size=k))}")
     bms, by = k1_bound(B, T)
-    log(f"[K1] ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-        f"share_of_bound={bms / ms:.3f}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    log(f"[K1] ms={ms:.4f} plain_ms={plain_ms:.4f} gemm_library_ms={gemm_ms:.4f} "
+        f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "gemm_library_ms": gemm_ms, "host_us": us}
 
 
 # ---------------------------------------------------------------------------
@@ -349,16 +434,26 @@ def k4_bound(B, T, C=512):
     return bound_ms(nbytes, mm)
 
 
+# K4's edge shapes: T off the tile, a reach past a whole tile, the variance widths
+K4_EDGES = ((2, 2049, 512, 64), (1, 100, 192, 16), (4, 2048, 256, 8))
+
+
 def check_k4(reps: int = 20) -> dict:
     import torch
 
     from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
 
+    errs, times, plain_times = [], [], []
+    for B, T, C, d in K4_EDGES:
+        y, cond, params = k4_inputs(B, T, C, seed=T + d)
+        got = K4.wavenet_block(y, cond, K4.prepare_weights(*params), dilation=d)
+        torch.cuda.synchronize()
+        errs.append(compare(f"K4 wavenet_block [B={B},T={T},C={C},d={d}]", got,
+                            K4.wavenet_block_plain(y, cond, *params, dilation=d)))
     B, T = B_TIME, T_TIME
     y, cond, params = k4_inputs(B, T)
     weights = K4.prepare_weights(*params)
     bms, by = k4_bound(B, T)
-    errs, times, plain_times = [], [], []
     for d in K4_DILATIONS:
         got = K4.wavenet_block(y, cond, weights, dilation=d)
         torch.cuda.synchronize()
@@ -370,8 +465,19 @@ def check_k4(reps: int = 20) -> dict:
                                    reps))
         log(f"[K4 d={d}] ms={times[-1]:.4f} plain_ms={plain_times[-1]:.4f} bound_ms={bms:.4f} "
             f"({by}) share_of_bound={bms / times[-1]:.3f}")
-    return {"max_abs_err": max(errs), "ms": sum(times) / len(times),
-            "plain_ms": sum(plain_times) / len(plain_times), "bound_ms": bms, "bound_by": by}
+    # the yardstick of the GEMM core: the three tap products and the output product as cuBLAS
+    # bf16 products at C = 512
+    rows = y.reshape(B * T, -1)
+    taps, w_out = weights[0], weights[2]
+    gemm_ms = cuda_ms(lambda: [torch.matmul(rows, w) for w in (taps[0], taps[1], taps[2], w_out)],
+                      reps)
+    us = host_us(lambda: K4.wavenet_block(y, cond, weights, dilation=1))
+    log(f"[K4 split] d=1: {device_split(lambda: K4.wavenet_block(y, cond, weights, dilation=1))}")
+    ms = sum(times) / len(times)
+    log(f"[K4] ms={ms:.4f} (mean of d = {K4_DILATIONS}) gemm_library_ms={gemm_ms:.4f} "
+        f"bound_ms={bms:.4f} share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": sum(plain_times) / len(plain_times),
+            "bound_ms": bms, "bound_by": by, "gemm_library_ms": gemm_ms, "host_us": us}
 
 
 # ---------------------------------------------------------------------------
@@ -709,6 +815,10 @@ def run_sampler_sweep(name_limit: str, reps: int = 2) -> dict:
     log(f"[timing lynx_variants] card={name_limit} B={B_TIME} T={T_TIME} steps={SWEEP_STEPS} "
         f"(mean of {reps}): " + " ".join(f"{m}_ms_per_step={t['ms_per_step']:.4f}"
                                           for m, t in times.items()))
+    for mode in ("module", "v1"):
+        busy = device_busy_ms(lambda: sweep.run(mode)) / SWEEP_STEPS
+        log(f"[busy lynx_variants] {mode}: device busy {busy:.4f} ms per step of "
+            f"{times[mode]['ms_per_step']:.4f} (share {busy / times[mode]['ms_per_step']:.3f})")
     del sweep
     torch.cuda.empty_cache()
     return launches
@@ -998,12 +1108,16 @@ def batched_timing(runner, name_limit: str, label: str, steps: int, kernels: dic
                              f"{bool(torch.isfinite(wav).all())}")
     mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
     total = sum(mean.values())
+    # the device's busy share of the acoustic stages (condition + aux + sampler): the kernel time of
+    # one profiled call over the unprofiled host time of the same stages
+    busy = device_busy_ms(lambda: runner.synthesize(tokens, mel2ph.contiguous(), f0, generator=g))
     audio_s = B * T * cfg["hop_size"] / cfg["audio_sample_rate"]
     out = {
         "cond_aux_ms": mean["cond_aux"] * 1e3,
         "sampler_ms_per_step": mean["sampler"] * 1e3 / steps,
         "vocoder_ms": mean["vocoder"] * 1e3,
         "audio_s_per_s": audio_s / total,
+        "device_busy_share_synth": busy / ((mean["cond_aux"] + mean["sampler"]) * 1e3),
     }
     log(f"[timing {label}] card={name_limit} B={B} T={T} steps={steps} (mean of {reps}): "
         + " ".join(f"{k}={v:.4f}" for k, v in out.items())

@@ -61,6 +61,7 @@ def _k1_params(rng, dim, inner, k, device):
     (2, 1000, 256, 512, 31),   # two sequences: no halo may cross between them
     (3, 77, 128, 256, 7),      # short kernel, one tile per sequence
     (2, 150, 192, 384, 31),    # dim % 128 != 0: a partial last column tile
+    (2, 300, 128, 192, 31),    # inner % 128 != 0: 128-column paired tiles
 ])
 def test_lynx_conv_kernel_matches_plain(cuda, B, T, dim, inner, k):
     rng = np.random.default_rng(0)
@@ -73,6 +74,64 @@ def test_lynx_conv_kernel_matches_plain(cuda, B, T, dim, inner, k):
     assert K1.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, dim)
     _rel_close(got, K1.lynx_conv_module_plain(x, *params, kernel_size=k))
+
+
+@pytest.mark.parametrize("k", [3, 31, 32])
+@pytest.mark.parametrize("dim,inner", [(256, 512), (1024, 2048)])
+@pytest.mark.parametrize("T", [37, 1000, 2048, 2049])
+@pytest.mark.parametrize("B", [1, 4])
+def test_lynx_conv_edge_shapes_match_plain(cuda, B, T, dim, inner, k):
+    """The GEMM-core K1 at the main path's width and a narrow one, T off the
+    128-row tile and the conv's 64-row block, odd and even kernels."""
+    rng = np.random.default_rng(B + T + dim + k)
+    x = torch.tensor(rng.standard_normal((B, T, dim)), dtype=torch.float32,
+                     device=cuda).to(torch.bfloat16)
+    params = _k1_params(rng, dim, inner, k, cuda)
+    before = K1.launches
+    got = K1.lynx_conv_module(x, K1.prepare_weights(*params), kernel_size=k)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    _rel_close(got, K1.lynx_conv_module_plain(x, *params, kernel_size=k))
+
+
+def test_lynx_conv_raises_on_tma_operands(cuda):
+    """A non-contiguous x and widths the kernel does not take."""
+    rng = np.random.default_rng(13)
+    weights = K1.prepare_weights(*_k1_params(rng, 128, 256, 31, cuda))
+    x = torch.zeros(1, 128, 16, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    before = K1.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.lynx_conv_module(x, weights)
+    for dim, inner, k in ((128, 96, 31), (128, 256, 35)):
+        w = K1.prepare_weights(*_k1_params(rng, dim, inner, k, cuda))
+        with pytest.raises(ValueError, match="dim % 64"):
+            K1.lynx_conv_module(torch.zeros(1, 16, dim, device=cuda, dtype=torch.bfloat16), w,
+                                kernel_size=k)
+    assert K1.launches == before
+
+
+@pytest.mark.parametrize("M,N,K,bn", [
+    (8192, 4096, 1024, 128), (8192, 4096, 1024, 256),   # the main-path product size
+    (1000, 1024, 512, 256), (37, 512, 64, 128),         # ragged M: one partial row tile
+    (129, 384, 192, 128),                               # one row past a tile
+    (300, 192, 128, 128),                               # N off the tile: a guarded last column tile
+    (8003, 1000, 512, 256),                             # both ragged: 16-byte pieces up to N
+])
+def test_gemm_core_matches_matmul(cuda, M, N, K, bn):
+    """The bare TMA + wgmma core (``csrc/sm90_gemm.cuh``) against
+    ``torch.matmul`` in f32 on the same bf16 inputs: a wrong swizzle or
+    descriptor gives plausible wrong numbers, a ragged M a wrong tail."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn(N, K, generator=g, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(N, generator=g, device=cuda)
+    got = K4.gemm_bf16(a, b, bias, bn=bn)
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float().t() + bias
+    assert got.shape == (M, N)
+    _rel_close(got, ref)
+    # a bf16 output is within one rounding of the f32 product
+    assert ((got.float() - ref).abs() <= 1e-2 * ref.abs() + 1e-2).all()
 
 
 def _stage(rng, L, kernels, dils, device):
@@ -434,11 +493,45 @@ def test_wavenet_block_raises_instead_of_falling_back(cuda):
         K4.wavenet_block(y.float(), cond, weights, dilation=1)
     with pytest.raises(ValueError, match="prepare_weights"):
         K4.wavenet_block(y, cond, params, dilation=1)
-    # widths and dilations the kernel does not take
-    for C, d in ((96, 1), (576, 1), (512, 33)):
+    # widths and dilations the kernel does not take (any d >= 1 is taken)
+    for C, d in ((96, 1), (576, 1), (512, 0)):
         yc, cc = _k4_acts(rng, 1, 64, C, cuda)
         with pytest.raises(ValueError, match="C % 64"):
             K4.wavenet_block(yc, cc, K4.prepare_weights(*_k4_params(rng, C, cuda)), dilation=d)
+    assert K4.launches == before
+
+
+@pytest.mark.parametrize("T", [100, 2048, 2049])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 64])
+@pytest.mark.parametrize("C", [192, 256, 512])
+def test_wavenet_block_edge_shapes_match_plain(cuda, C, d, T):
+    """The GEMM-core K4 at the widths and dilations its tap loads must get
+    right: T off the 128-row tile, and reaches past a whole tile."""
+    rng = np.random.default_rng(C + d + T)
+    y, cond = _k4_acts(rng, 2, T, C, cuda)
+    params = _k4_params(rng, C, cuda)
+    before = K4.launches
+    got = K4.wavenet_block(y, cond, K4.prepare_weights(*params), dilation=d)
+    torch.cuda.synchronize()
+    assert K4.launches == before + 1
+    _rel_close(got, K4.wavenet_block_plain(y, cond, *params, dilation=d))
+
+
+def test_wavenet_block_raises_on_tma_operands(cuda):
+    """Operands TMA cannot read: a misaligned or a non-contiguous y or cond_proj."""
+    rng = np.random.default_rng(12)
+    y, cond = _k4_acts(rng, 1, 64, 128, cuda)
+    weights = K4.prepare_weights(*_k4_params(rng, 128, cuda))
+    before = K4.launches
+    shifted = torch.zeros(64 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 64, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        K4.wavenet_block(shifted, cond, weights, dilation=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.wavenet_block(torch.zeros(1, 128, 64, device=cuda, dtype=torch.bfloat16)
+                         .transpose(1, 2), cond, weights, dilation=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.wavenet_block(y, torch.zeros(1, 256, 64, device=cuda, dtype=torch.bfloat16)
+                         .transpose(1, 2), weights, dilation=1)
     assert K4.launches == before
 
 

@@ -232,6 +232,36 @@ def test_wrapper_folded_and_stock_agree(tmp_path):
     np.testing.assert_allclose(no_fused.spec2wav(mel, f0), ref, atol=FOLD_TOL, rtol=0)
 
 
+def test_wrapper_resblock2_checkpoint_default_keys(tmp_path):
+    """A ResBlock2 ``model.ckpt`` + ``config.json`` through the wrapper with
+    the default config keys: the folded layout with no fused stage (the fused
+    stage kernel takes ResBlock1 only, so the default ``vocoder_pallas_stages``
+    is ``()`` here, where the JAX wrapper's ``(0, 1)`` would fail), whose wav
+    equals the stock generator's within 2e-5 (f32)."""
+    from xiaoicesing_io_tpu_torch.models.vocoders.wrapper import NsfHifiGAN
+
+    vcfg = dict(num_mels=128, sampling_rate=44100, hop_size=512, n_fft=2048, win_size=2048,
+                fmin=40, fmax=16000, upsample_rates=[8, 8, 2, 2, 2],
+                upsample_kernel_sizes=[16, 16, 4, 4, 4], upsample_initial_channel=64,
+                resblock="2", resblock_kernel_sizes=[3, 7, 11],
+                resblock_dilation_sizes=[[1, 3]] * 3)
+    torch.manual_seed(6)
+    torch.save({"generator": PGen(PCfg.from_json(vcfg)).state_dict()}, tmp_path / "model.ckpt")
+    (tmp_path / "config.json").write_text(json.dumps(vcfg))
+    voc = NsfHifiGAN({"vocoder_ckpt": str(tmp_path / "model.ckpt"), "mel_base": "e"},
+                     device="cpu")
+    assert voc.vcfg.resblock == "2"
+    assert voc.fast is not None and voc.fast.pallas_stages == ()
+    rng = np.random.default_rng(7)
+    mel = rng.standard_normal((2, 6, 128)).astype(np.float32) - 3.0
+    f0 = rng.uniform(100, 400, (2, 6)).astype(np.float32)
+    got = voc.spec2wav(mel, f0)
+    with torch.no_grad():
+        ref = voc.generator(torch.from_numpy(mel), torch.from_numpy(f0), stages={}).numpy()
+    assert got.shape == ref.shape == (2, 6 * 512) and np.abs(ref).max() > 1e-3
+    np.testing.assert_allclose(got, ref, atol=FOLD_TOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # K6's plain version against the Pallas kernel (interpret mode)
 # ---------------------------------------------------------------------------

@@ -147,11 +147,16 @@ def test_wavenet_block_plain_matches_pallas(rng, d):
 
 
 def test_wavenet_block_stated_widths():
-    """The widths the wrapper's docstring states the kernel takes."""
-    fits = lambda C, d: K4.smem_bytes(C, d) <= K4.MAX_SMEM  # noqa: E731
-    assert fits(512, 32) and not fits(512, 33)
-    assert fits(256, 124) and not fits(256, 125)
-    assert all(fits(C, 16) for C in (64, 192, 256, 512))
+    """The widths the wrapper's docstring states the kernel takes: C % 64 ==
+    0 up to 512 and any dilation d >= 1 (the taps are TMA loads, with no
+    staged halo to bound d)."""
+    for C, d in ((512, 32), (512, 33), (256, 124), (256, 125), (512, 4096)):
+        K4.check_widths(C, d)
+    for C in (64, 192, 256, 512):
+        K4.check_widths(C, 16)
+    for C, d in ((512, 0), (576, 1), (96, 16)):
+        with pytest.raises(ValueError, match="C % 64"):
+            K4.check_widths(C, d)
 
 
 def test_wavenet_block_refuses_other_devices():

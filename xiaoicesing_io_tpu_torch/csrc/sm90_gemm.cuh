@@ -1,0 +1,459 @@
+// Hopper GEMM core shared by csrc/lynx_conv.cu (K1) and csrc/wavenet_block.cu (K4), sm_90a.
+//
+//     out[b, r, n] = epilogue( sum_k A'[b, r, k] * B[n, k] )
+//
+// A is a bf16 tensor [batch, rows, a_k] read through a 3-D TMA tensor map; the reduction runs over
+// K = taps * a_k, where tap j reads A's rows shifted by (j - taps / 2) * dil (taps = 1: a plain
+// product; taps = 3: a dilated k=3 conv over the rows of each batch entry). Rows outside
+// [0, rows) read as zero: TMA fills out-of-bounds boxes with zeros, which is exactly the conv's
+// per-sequence SAME padding, and the tail of a ragged last row tile. B is K-major bf16 [N, K]
+// (row n holds output column n's weights). Both maps are 3-D (B's outer extent is 1).
+//
+// Design (one output tile of 128 rows x BN columns per block, BN = 128 or 256, BK = 64):
+//   - copies: one producer thread issues TMA loads of the A and B tiles (128-byte swizzle, 64 bf16
+//     a row) into a ring of kStages stages in shared memory, each with a full and an empty mbarrier;
+//   - products: two consumer warpgroups, each owning 64 rows of the tile, run
+//     wgmma.mma_async m64nBNk16 (bf16 in, f32 accumulate) from shared memory; one K block's group
+//     stays in flight while the next is issued, and a stage goes back to the producer when its
+//     group has completed;
+//   - registers: setmaxnreg moves registers from the producer warpgroup (40) to the consumers (232);
+//   - epilogue: a functor's value() turns each pair of adjacent accumulator columns, with its
+//     (batch, row, column), into a pair of outputs (Epi::Out: bf16 or f32); rows >= rows and
+//     columns >= cols are never passed. With kPaired, tile p holds the columns p * BN/2.. of the
+//     first and of the second half of a column-paired B (the host builds it), and value() gets
+//     both halves of a column at once: in wgmma's accumulator layout columns c and c + BN/2 of a
+//     tile sit in the same thread, so a gate can be register-local. The pairs are staged in
+//     shared memory and written out in 16-byte pieces, a warp to a row of Epi::row(batch, row):
+//     stored straight from the accumulator layout, a warp's pairs of bf16 would cover 16 bytes
+//     of each of eight rows, half a sector each.
+// Tensor maps are encoded on the host through sm90_encode_map (cuTensorMapEncodeTiled, looked up
+// with cudaGetDriverEntryPoint, so the library links nothing) and passed to the kernel as
+// __grid_constant__ parameters.
+//
+// Not done yet: persistent blocks or ping-pong consumers (one tile per block here, so a tile's
+// epilogue, the products' largest loss on an H100, overlaps neither the next tile's loads nor
+// its products) and TMA stores. Two-block clusters multicasting B were tried and made both
+// kernels slower (PERF.md).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+// Internal linkage: both libraries include this header, and a function-local static of an inline
+// template (the per-device attribute flags below) would otherwise be one symbol for the whole
+// process, shared between them.
+namespace sm90 {
+namespace {
+
+constexpr int kBM = 128;        // rows of an output tile: two consumer warpgroups of 64
+constexpr int kBK = 64;         // K per stage: one 128-byte swizzle row of bf16
+constexpr int kThreads = 384;   // warpgroups 0, 1 consume; warpgroup 2 produces
+constexpr int kConsumerWarps = 8;
+constexpr int kMaxDevices = 64;
+
+template <int BN>
+struct Config {
+  static_assert(BN == 128 || BN == 256, "wgmma tile width");
+  static constexpr int kStages = BN == 256 ? 4 : 5;
+  static constexpr int kABytes = kBM * kBK * 2;
+  static constexpr int kBBytes = BN * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // + 1024 to align the ring to the swizzle atom, + the barriers
+  static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+};
+
+struct Args {
+  int rows;  // rows of one batch entry of A and of the output
+  int cols;  // output columns (N)
+  int a_k;   // A's width: K of one tap, a multiple of 64
+  int taps;  // K = taps * a_k
+  int dil;   // row shift between taps
+};
+
+// ---- device helpers -----------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of the given parity to complete. A wait that lasts seconds is a pipeline
+// fault, never a legitimate wait: trap, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  if (mbar_try_wait(b, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(b, parity)) {
+    if (global_ns() - t0 > 4000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major tile stored by TMA with the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (SBO), layout type 1 (B128). The leading offset is
+// unused for swizzled K-major layouts. K steps of 16 bf16 inside the 64-wide row add 32 bytes to
+// the start address (+2 in the descriptor's 16-byte units); the tile base is 1024-byte aligned.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N]^T, A and B K-major in shared memory; scale_d = 0 ignores D.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (BN == 128) {
+    wgmma_m64n128k16(d, da, db, scale_d);
+  } else {
+    wgmma_m64n256k16(d, da, db, scale_d);
+  }
+}
+
+// ---- the kernel ---------------------------------------------------------------------------------
+
+template <int BN, bool kPaired, class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                const Args args, const Epi epi) {
+  using Cfg = Config<BN>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Cfg::kStages * Cfg::kStageBytes);
+  uint64_t* empty = full + Cfg::kStages;
+
+  const int n_tile = blockIdx.x;
+  const int m_tile = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int k_blocks = args.taps * args.a_k / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      const int a_blocks = args.a_k / kBK;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* sa = smem + stage * Cfg::kStageBytes;
+        mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+        const int tap = kb / a_blocks;
+        const int row = m_tile * kBM + (tap - args.taps / 2) * args.dil;
+        tma_load_3d(sa, &map_a, &full[stage], (kb - tap * a_blocks) * kBK, row, batch);
+        tma_load_3d(sa + Cfg::kABytes, &map_b, &full[stage], kb * kBK, n_tile * BN, 0);
+        if (++stage == Cfg::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows wg * 64 .. + 64 of the tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // No instruction but the products touches the accumulators until the last wait: the first
+    // product ignores them (scale-d 0) instead of reading zeros, so the products never serialise.
+    float acc[BN / 2];
+    // One group of products stays in flight: after issuing K block kb, wait for kb - 1's group
+    // and hand its stage back to the producer.
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int kb = 0; kb < k_blocks; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* sa = smem + stage * Cfg::kStageBytes;
+      const uint64_t da = desc_sw128(sa + wg * 64 * kBK * 2);
+      const uint64_t db = desc_sw128(sa + Cfg::kABytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kb > 0) {
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == Cfg::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_operand(acc);
+
+    // ---- epilogue: accumulator element i of a thread is row 16 w + lane / 4 + 8 ((i / 2) % 2),
+    // column 8 (i / 4) + 2 (lane % 4) + i % 2 of its warpgroup's 64 x BN tile. The functor's
+    // pairs are staged in shared memory (the ring, idle once both warpgroups are done with it),
+    // then each warpgroup writes its 64 rows out in 16-byte pieces, a warp to a row ----
+    using Out = typename Epi::Out;
+    using Pair = typename Epi::Pair;
+    constexpr int kOutCols = kPaired ? BN / 2 : BN;  // output columns of a tile
+    // rows padded by four pairs, so the pair writes of a warp (8 rows x 4 lanes) miss no bank twice
+    constexpr int kRowBytes = kOutCols * (int)sizeof(Out) + 4 * (int)sizeof(Pair);
+    constexpr int kChunks = kOutCols * (int)sizeof(Out) / 16;  // 16-byte pieces of a row
+    constexpr int kPerChunk = 16 / (int)sizeof(Out);
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are off the ring
+    uint8_t* tile = smem + wg * 64 * kRowBytes;
+    const int lane = threadIdx.x & 31;
+    const int r0 = ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // row in the warpgroup's 64
+    const int row_base = m_tile * kBM + wg * 64;
+    const int col_base = n_tile * kOutCols;
+    const int c0 = 2 * (lane & 3);
+    const int out_cols = kPaired ? args.cols / 2 : args.cols;
+#pragma unroll
+    for (int j = 0; j < kOutCols / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const int i = 4 * j + 2 * h;
+        const int col = col_base + 8 * j + c0;
+        if (row_base + r < args.rows && col < out_cols) {
+          Pair v;
+          if constexpr (kPaired) {
+            const int i2 = i + BN / 4;  // column c + BN / 2 of the tile
+            v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1], acc[i2], acc[i2 + 1]);
+          } else {
+            v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1]);
+          }
+          *reinterpret_cast<Pair*>(tile + r * kRowBytes + (8 * j + c0) * (int)sizeof(Out)) = v;
+        }
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    const int t = threadIdx.x & 127;
+#pragma unroll 4
+    for (int q = t; q < 64 * kChunks; q += 128) {
+      const int r = q / kChunks;
+      const int ch = q % kChunks;
+      const int col = col_base + ch * kPerChunk;
+      if (row_base + r < args.rows && col + kPerChunk <= out_cols) {
+        *reinterpret_cast<uint4*>(epi.row(batch, row_base + r) + col) =
+            *reinterpret_cast<const uint4*>(tile + r * kRowBytes + ch * 16);
+      }
+    }
+  }
+}
+
+// out[b * rows + r, n] = acc + bias[n] as bf16, ld = cols: a plain product's epilogue.
+struct StoreBiasBf16 {
+  using Out = __nv_bfloat16;
+  using Pair = __nv_bfloat162;
+  const float* bias;
+  __nv_bfloat16* out;
+  int rows;
+  int cols;
+  __device__ __forceinline__ Pair value(int, int, int n, float v0, float v1) const {
+    const float2 bn = *reinterpret_cast<const float2*>(bias + n);
+    return __floats2bfloat162_rn(v0 + bn.x, v1 + bn.y);
+  }
+  __device__ __forceinline__ Out* row(int b, int r) const { return out + ((size_t)b * rows + r) * cols; }
+};
+
+// ---- host side ----------------------------------------------------------------------------------
+
+inline CUtensorMap load_map(const void* host_bytes) {
+  CUtensorMap m;
+  std::memcpy(&m, host_bytes, sizeof(m));
+  return m;
+}
+
+template <int BN, bool kPaired, class Epi>
+inline cudaError_t launch(const void* map_a, const void* map_b, const Args& args, int batch,
+                          const Epi& epi, cudaStream_t stream) {
+  const int m_tiles = (args.rows + kBM - 1) / kBM;
+  if (args.rows < 1 || args.cols < 1 || args.a_k < kBK || args.a_k % kBK || args.taps < 1 ||
+      args.cols % 8 || batch < 1 || batch > 65535 || m_tiles > 65535 ||
+      (kPaired && args.cols % BN)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = gemm_kernel<BN, kPaired, Epi>;
+  // the attribute belongs to a device: set it once for each
+  static bool smem_set[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= kMaxDevices || !smem_set[device]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Config<BN>::kSmem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) smem_set[device] = true;
+  }
+  const dim3 grid((args.cols + BN - 1) / BN, m_tiles, batch);
+  kernel<<<grid, kThreads, Config<BN>::kSmem, stream>>>(load_map(map_a), load_map(map_b), args,
+                                                         epi);
+  return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+}  // namespace
+}  // namespace sm90
+
+// The tensor map of a row-major bf16 tensor seen as [d2, d1, d0] (d0 innermost, d0 * 2 bytes a
+// row; s1, s2 the byte strides of dimensions 1 and 2), box {64, box_rows, 1}, 128-byte swizzle,
+// zero fill out of bounds. Writes the 128-byte map to out; returns a CUDA error code, 0 on success.
+extern "C" int sm90_encode_map(void* out, const void* base, long long d0, long long d1,
+                               long long d2, long long s1, long long s2, int box_rows) {
+  sm90::EncodeTiledFn encode = sm90::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  alignas(64) CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  const cuuint32_t box[3] = {(cuuint32_t)sm90::kBK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  std::memcpy(out, &map, sizeof(map));
+  return 0;
+}

@@ -16,8 +16,9 @@ JAX layouts: ``w_in`` ``[dim, 2*inner]`` with columns ``[out | gate]``,
 
 :func:`lynx_conv_module` takes its weights from :func:`prepare_weights`.  On
 a CPU tensor it runs :func:`lynx_conv_module_plain`; on a CUDA tensor it
-launches ``csrc/lynx_conv.cu`` (two launches: the head up to PReLU, then the
-last product; the source says why) or raises.  The kernel takes dim % 64 == 0,
+launches ``csrc/lynx_conv.cu`` (four passes: LayerNorm, the SwiGLU product
+and the output product on the Hopper GEMM core ``csrc/sm90_gemm.cuh``, the
+depthwise conv between them) or raises.  The kernel takes dim % 64 == 0,
 inner % 64 == 0 and k <= 33.  The bound and the design are described in the
 CUDA source.
 """
@@ -25,15 +26,16 @@ CUDA source.
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, sm90
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _pads(k: int):
@@ -80,64 +82,105 @@ def dwconv_prelu(u, dw_kernel, dw_bias, alpha, kernel_size: int) -> torch.Tensor
 
 def prepare_weights(ln_scale, ln_bias, w_in, b_in, dw_kernel, dw_bias, alpha, w2, b2,
                     product_dtype=torch.bfloat16):
-    """The kernel's operand types and layouts, contiguous: product weights in
-    ``product_dtype`` (bf16 for the kernel), f32 everything else.  Do this
-    once per set of weights."""
+    """The kernel's operand types, contiguous, in the JAX layouts: product
+    weights in ``product_dtype`` (bf16 for the kernel), f32 everything else.
+    Do this once per set of weights: K1, K5, K7 and K8 read the same tuple,
+    and the K-major copies K1 reads are built from it at its first launch and
+    kept with it (:func:`kernel_operands`)."""
     f32, pd = torch.float32, product_dtype
     inner = w2.shape[0]
-    return (
+    return sm90.Prepared((
         ln_scale.to(f32).contiguous(), ln_bias.to(f32).contiguous(),
         w_in.to(pd).contiguous(), b_in.to(f32).contiguous(),
         dw_kernel.reshape(-1, inner).to(f32).contiguous(), dw_bias.to(f32).contiguous(),
         alpha.to(f32).contiguous(), w2.to(pd).contiguous(), b2.to(f32).contiguous(),
-    )
+    ))
 
 
-def _launch(x, weights, kernel_size: int) -> torch.Tensor:
-    global launches
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"lynx_conv_module kernel takes bf16 activations, got {x.dtype}")
-    B, T, dim = x.shape
+def k_major_weights(weights):
+    """``w_in`` ``[dim, 2 inner]`` as a K-major, column-paired ``[2 inner,
+    dim]`` (tile p: out columns Pp.., then gate columns inner + Pp.., P =
+    ``sm90.pair_width(inner)``) and ``w2`` as K-major ``[dim, inner]``."""
+    w_in, w2 = weights[2], weights[7]
+    return sm90.paired_k_major(w_in, sm90.pair_width(w2.shape[0])), sm90.k_major(w2)
+
+
+_Operands = namedtuple("_Operands", "device dim inner win_t w2_t map_w_in map_w2 bn_in bn_out")
+_maps = sm90.MapCache("lynx_conv")
+
+
+def kernel_operands(weights) -> _Operands:
+    """Checks the prepared weights once, then builds :func:`k_major_weights`,
+    their tensor maps and the two products' N tiles."""
     ln_scale, ln_bias, w_in, b_in, dw, dw_bias, alpha, w2, b2 = weights
-    inner = w2.shape[0]
+    inner, dim = w2.shape
     expect = {
         "ln_scale": (ln_scale, torch.float32, (dim,)),
         "ln_bias": (ln_bias, torch.float32, (dim,)),
         "w_in": (w_in, torch.bfloat16, (dim, 2 * inner)),
         "b_in": (b_in, torch.float32, (2 * inner,)),
-        "dw_kernel": (dw, torch.float32, (kernel_size, inner)),
+        "dw_kernel": (dw, torch.float32, (dw.shape[0], inner)),
         "dw_bias": (dw_bias, torch.float32, (inner,)),
         "alpha": (alpha, torch.float32, (inner,)),
         "w2": (w2, torch.bfloat16, (inner, dim)),
         "b2": (b2, torch.float32, (dim,)),
     }
     for name, (t, dtype, shape) in expect.items():
-        if t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape \
+        if t.device != w2.device or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(
                 f"lynx_conv_module: {name} must be a contiguous {dtype} {shape} tensor on "
-                f"{x.device} (see prepare_weights), got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{w2.device} (see prepare_weights), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    if dim % 64 or inner % 64 or kernel_size - 1 > 32:
+        sm90.check_operand("lynx_conv_module", name, t, " (see prepare_weights)")
+    win_t, w2_t = k_major_weights(weights)
+    bn_in, bn_out = 2 * sm90.pair_width(inner), sm90.tile_n(dim)
+    return _Operands(w2.device, dim, inner, win_t, w2_t, sm90.encode("lynx_conv", win_t, bn_in),
+                     sm90.encode("lynx_conv", w2_t, bn_out), bn_in, bn_out)
+
+
+def check_widths(dim: int, inner: int, kernel_size: int) -> None:
+    if dim % 64 or inner % 64 or min(dim, inner) < 64 or not 1 <= kernel_size <= 33:
         raise ValueError(
-            f"lynx_conv_module kernel needs dim % 64 == 0, inner % 64 == 0 and k <= 33 "
+            f"lynx_conv_module kernel needs dim % 64 == 0, inner % 64 == 0 and 1 <= k <= 33 "
             f"(dim={dim}, inner={inner}, k={kernel_size})"
         )
-    x = x.contiguous()
-    for name, t in (("x", x), ("w_in", w_in), ("w2", w2)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"lynx_conv_module: {name} must be 16-byte aligned (vector loads)")
-    act = torch.empty(B, T, inner, dtype=torch.bfloat16, device=x.device)
+
+
+def _launch(x, weights, kernel_size: int) -> torch.Tensor:
+    global launches
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"lynx_conv_module kernel takes bf16 activations, got {x.dtype}")
+    if not isinstance(weights, sm90.Prepared):
+        raise ValueError("lynx_conv_module: weights must come from prepare_weights")
+    B, T, dim = x.shape
+    inner = weights[7].shape[0]
+    check_widths(dim, inner, kernel_size)
+    ops = weights.operands(kernel_operands)
+    dw = weights[4]
+    if ops.device != x.device or ops.dim != dim or dw.shape[0] != kernel_size:
+        raise ValueError(
+            f"lynx_conv_module: weights of width {ops.dim} with {dw.shape[0]} taps on "
+            f"{ops.device} for x {tuple(x.shape)} on {x.device}, k={kernel_size} "
+            f"(see prepare_weights)")
+    sm90.check_operand("lynx_conv_module", "x", x)
+    rows = B * T
+    xn = torch.empty(rows, dim, dtype=torch.bfloat16, device=x.device)
+    u = torch.empty(rows, inner, dtype=torch.float32, device=x.device)
+    act = torch.empty(rows, inner, dtype=torch.bfloat16, device=x.device)
     out = torch.empty(B, T, dim, dtype=torch.bfloat16, device=x.device)
-    lib = build.load("lynx_conv")
-    fn = lib.lynx_conv_module_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    ln_scale, ln_bias, _, b_in, _, dw_bias, alpha, _, b2 = weights
     pad_l, _ = _pads(kernel_size)
-    ptrs = [t.data_ptr() for t in (x, ln_scale, ln_bias, w_in, b_in, dw, dw_bias, alpha, w2, b2,
-                                   act, out)]
     with torch.cuda.device(x.device):
-        status = fn(*ptrs, B, T, dim, inner, kernel_size, pad_l, build.stream_ptr(x.device))
+        map_xn = _maps.get(xn, sm90.BM)
+        map_act = _maps.get(act, sm90.BM)
+        fn = sm90.function("lynx_conv", "lynx_conv_module_launch", _ARGTYPES)
+        status = fn(ctypes.addressof(map_xn), ctypes.addressof(ops.map_w_in),
+                    ctypes.addressof(map_act), ctypes.addressof(ops.map_w2),
+                    *[t.data_ptr() for t in (x, ln_scale, ln_bias, b_in, dw, dw_bias, alpha, b2,
+                                             xn, u, act, out)],
+                    B, T, dim, inner, kernel_size, pad_l, ops.bn_in, ops.bn_out,
+                    build.stream_ptr(x.device))
     build.check(status, "lynx_conv_module launch")
     launches += 1
     return out

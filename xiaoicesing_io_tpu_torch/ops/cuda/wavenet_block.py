@@ -16,34 +16,29 @@ f32.
 
 :func:`wavenet_block` takes its weights from :func:`prepare_weights`.  On a
 CPU tensor it runs :func:`wavenet_block_plain`; on a CUDA tensor it launches
-``csrc/wavenet_block.cu`` once or raises.  The kernel takes C % 64 == 0,
-64 <= C <= 512, and any dilation d >= 1 whose 64 + 2d staged rows fit the
-block's shared memory (:func:`smem_bytes`: d <= 32 at C = 512, d <= 124 at
-C = 256).  The bound and the design are described in the CUDA source.
+``csrc/wavenet_block.cu`` (two launches of the Hopper GEMM core,
+``csrc/sm90_gemm.cuh``: the conv with the gate in its epilogue, then the
+output product) or raises.  The kernel takes C % 64 == 0, 64 <= C <= 512
+and any dilation d >= 1.  The bound and the design are described in the
+CUDA source.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, sm90
 
 MAX_CHANNELS = 512
-MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def smem_bytes(C: int, d: int) -> int:
-    """Shared memory of one block, as ``csrc/wavenet_block.cu:smem_bytes``
-    computes it: 64 + 2d rows of y and 64 rows of g at a stride of C + 16
-    bf16, plus 27,648 bytes of weight staging."""
-    return (2 * 64 + 2 * d) * (C + 16) * 2 + 3 * 32 * 144 * 2
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_GEMM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def wavenet_block_plain(y, cond_proj, conv_kernel, conv_bias, out_kernel, out_bias,
@@ -61,60 +56,115 @@ def wavenet_block_plain(y, cond_proj, conv_kernel, conv_bias, out_kernel, out_bi
 
 
 def prepare_weights(conv_kernel, conv_bias, out_kernel, out_bias, product_dtype=torch.bfloat16):
-    """The kernel's operand types and layouts, contiguous: product weights in
-    ``product_dtype`` (bf16 for the kernel), biases f32.  Do this once per set
-    of weights."""
+    """The kernel's operand types, contiguous, in the JAX layouts: product
+    weights in ``product_dtype`` (bf16 for the kernel), biases f32.  Do this
+    once per set of weights: the K-major copies the kernel reads are built
+    from it at its first launch and kept with it (:func:`kernel_operands`)."""
     f32, pd = torch.float32, product_dtype
-    return (conv_kernel.to(pd).contiguous(), conv_bias.to(f32).contiguous(),
-            out_kernel.to(pd).contiguous(), out_bias.to(f32).contiguous())
+    return sm90.Prepared((conv_kernel.to(pd).contiguous(), conv_bias.to(f32).contiguous(),
+                          out_kernel.to(pd).contiguous(), out_bias.to(f32).contiguous()))
 
 
-def _launch(y, cond_proj, weights, dilation: int) -> torch.Tensor:
-    global launches
-    if y.dtype != torch.bfloat16:
-        raise TypeError(f"wavenet_block kernel takes bf16 activations, got {y.dtype}")
-    B, T, C = y.shape
-    d = int(dilation)
-    if C % 64 or not 64 <= C <= MAX_CHANNELS or d < 1 or smem_bytes(C, d) > MAX_SMEM:
-        raise ValueError(
-            f"wavenet_block kernel needs C % 64 == 0, 64 <= C <= {MAX_CHANNELS} and d >= 1 with "
-            f"{smem_bytes(C, max(d, 1))} <= {MAX_SMEM} bytes of shared memory (C={C}, d={d})"
-        )
+def k_major_weights(weights):
+    """The conv weights ``[3, C, 2C]`` as a K-major, column-paired ``[2C, 3C]``
+    (K index ``tap * C + c``; tile p: gate columns Pp.., then filter columns
+    C + Pp.., P = ``sm90.pair_width(C)``) and ``out_kernel`` as K-major
+    ``[2C, C]``."""
+    conv_kernel, _, out_kernel, _ = weights
+    C = out_kernel.shape[0]
+    return (sm90.paired_k_major(conv_kernel.reshape(3 * C, 2 * C), sm90.pair_width(C)),
+            sm90.k_major(out_kernel))
+
+
+_Operands = namedtuple("_Operands", "device C wc wo map_wc map_wo bn_gate bn_out")
+_maps = sm90.MapCache("wavenet_block")
+
+
+def kernel_operands(weights) -> _Operands:
+    """Checks the prepared weights once, then builds :func:`k_major_weights`,
+    their tensor maps and the two products' N tiles."""
     conv_kernel, conv_bias, out_kernel, out_bias = weights
+    C = out_kernel.shape[0]
     expect = {
-        "cond_proj": (cond_proj, torch.bfloat16, (B, T, 2 * C)),
         "conv_kernel": (conv_kernel, torch.bfloat16, (3, C, 2 * C)),
         "conv_bias": (conv_bias, torch.float32, (2 * C,)),
         "out_kernel": (out_kernel, torch.bfloat16, (C, 2 * C)),
         "out_bias": (out_bias, torch.float32, (2 * C,)),
     }
     for name, (t, dtype, shape) in expect.items():
-        if t.device != y.device or t.dtype != dtype or tuple(t.shape) != shape:
+        if t.device != conv_kernel.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
-                f"wavenet_block: {name} must be a {dtype} {shape} tensor on {y.device} "
+                f"wavenet_block: {name} must be a {dtype} {shape} tensor on {conv_kernel.device} "
                 f"(weights: see prepare_weights), got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
-    y = y.contiguous()
-    cond_proj = cond_proj.contiguous()
-    for name, t in (("conv_kernel", conv_kernel), ("conv_bias", conv_bias),
-                    ("out_kernel", out_kernel), ("out_bias", out_bias)):
-        if not t.is_contiguous():
-            raise ValueError(f"wavenet_block: {name} must be contiguous (see prepare_weights)")
-    for name, t in (("y", y), ("cond_proj", cond_proj), ("conv_kernel", conv_kernel),
-                    ("out_kernel", out_kernel)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"wavenet_block: {name} must be 16-byte aligned (vector loads)")
+        sm90.check_operand("wavenet_block", name, t, " (see prepare_weights)")
+    wc, wo = k_major_weights(weights)
+    bn_gate, bn_out = 2 * sm90.pair_width(C), sm90.tile_n(2 * C)
+    return _Operands(conv_kernel.device, C, wc, wo, sm90.encode("wavenet_block", wc, bn_gate),
+                     sm90.encode("wavenet_block", wo, bn_out), bn_gate, bn_out)
+
+
+def check_widths(C: int, d: int) -> None:
+    if C % 64 or not 64 <= C <= MAX_CHANNELS or d < 1:
+        raise ValueError(
+            f"wavenet_block kernel needs C % 64 == 0, 64 <= C <= {MAX_CHANNELS} and d >= 1 "
+            f"(C={C}, d={d})"
+        )
+
+
+def _launch(y, cond_proj, weights, dilation: int) -> torch.Tensor:
+    global launches
+    if y.dtype != torch.bfloat16:
+        raise TypeError(f"wavenet_block kernel takes bf16 activations, got {y.dtype}")
+    if not isinstance(weights, sm90.Prepared):
+        raise ValueError("wavenet_block: weights must come from prepare_weights")
+    B, T, C = y.shape
+    d = int(dilation)
+    check_widths(C, d)
+    ops = weights.operands(kernel_operands)
+    if ops.device != y.device or ops.C != C:
+        raise ValueError(f"wavenet_block: weights of width {ops.C} on {ops.device} for y "
+                         f"{tuple(y.shape)} on {y.device} (see prepare_weights)")
+    if cond_proj.dtype != torch.bfloat16 or tuple(cond_proj.shape) != (B, T, 2 * C) \
+            or cond_proj.device != y.device:
+        raise ValueError(f"wavenet_block: cond_proj must be a bf16 {(B, T, 2 * C)} tensor on "
+                         f"{y.device}, got {cond_proj.dtype} {tuple(cond_proj.shape)} on "
+                         f"{cond_proj.device}")
+    sm90.check_operand("wavenet_block", "y", y)
+    sm90.check_operand("wavenet_block", "cond_proj", cond_proj)
+    g = torch.empty(B, T, C, dtype=torch.bfloat16, device=y.device)
     out = torch.empty(B, T, 2 * C, dtype=torch.bfloat16, device=y.device)
-    lib = build.load("wavenet_block")
-    fn = lib.wavenet_block_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    ptrs = [t.data_ptr() for t in (y, cond_proj, conv_kernel, conv_bias, out_kernel, out_bias,
-                                   out)]
+    conv_bias, out_bias = weights[1], weights[3]
     with torch.cuda.device(y.device):
-        status = fn(*ptrs, B, T, C, d, build.stream_ptr(y.device))
+        map_y = _maps.get(y, sm90.BM)
+        map_g = _maps.get(g.view(B * T, C), sm90.BM)
+        fn = sm90.function("wavenet_block", "wavenet_block_launch", _ARGTYPES)
+        status = fn(ctypes.addressof(map_y), ctypes.addressof(ops.map_wc), ctypes.addressof(map_g),
+                    ctypes.addressof(ops.map_wo), cond_proj.data_ptr(), conv_bias.data_ptr(),
+                    out_bias.data_ptr(), g.data_ptr(), out.data_ptr(), B, T, C, d, ops.bn_gate,
+                    ops.bn_out, build.stream_ptr(y.device))
     build.check(status, "wavenet_block launch")
     launches += 1
+    return out
+
+
+def gemm_bf16(a, b_kmajor, bias, bn: int = 128) -> torch.Tensor:
+    """The bare GEMM core: ``a [M, K] @ b_kmajor[N, K]^T + bias`` as bf16, for
+    the card tests of ``csrc/sm90_gemm.cuh``; the port's paths never call it."""
+    (M, K), (N, _) = a.shape, b_kmajor.shape
+    for name, t in (("a", a), ("b", b_kmajor)):
+        if t.dtype != torch.bfloat16 or t.shape[-1] != K or K % sm90.BK:
+            raise ValueError(f"gemm_bf16: {name} must be bf16 with K % 64 == 0")
+        sm90.check_operand("gemm_bf16", name, t)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device=a.device)
+    bias = bias.float().contiguous()
+    with torch.cuda.device(a.device):
+        map_a = sm90.encode("wavenet_block", a, sm90.BM)
+        map_b = sm90.encode("wavenet_block", b_kmajor, bn)
+        fn = sm90.function("wavenet_block", "sm90_gemm_bf16_launch", _GEMM_ARGTYPES)
+        status = fn(ctypes.addressof(map_a), ctypes.addressof(map_b), bias.data_ptr(),
+                    out.data_ptr(), M, N, K, bn, build.stream_ptr(a.device))
+    build.check(status, "sm90_gemm_bf16 launch")
     return out
 
 
