@@ -16,6 +16,10 @@ Phases, each printed on its own line:
      (``torch.profiler``);
   4. K2 ``fused_resblock_stage`` against its plain version at vocoder stages 0
      and 1 of the same batch (L=256 at T*8 rows, L=128 at T*64 rows; bf16);
+     per stage its time, the unfused bf16 cuDNN chain's, ``gemm_library_ms``
+     (each conv's taps as one cuBLAS product ``[rows, L] @ [L, k L]``, the
+     products alone), the host microseconds per call and the device split of
+     its leaky-ReLU pass, first convs and second convs;
   5. K4 ``wavenet_block`` against its plain version at three edge shapes (T
      off the tile, d 64, C 192 and 256) and at the WaveNet path's shape (B=4,
      T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8; its
@@ -73,14 +77,18 @@ Phases, each printed on its own line:
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
-the widest taps (k 11, d 5: 27 + 7 folded taps, L = 128) at B=4 x 131072
-rows, a raw dilated unit at L = 256 (k 11, d 5, 16384 rows a sequence) and
+the widest taps (k 11, d 5: 27 + 7 folded taps, 17 + 7 of them not all
+zero, L = 128) at B=4 x 131072 rows, a raw dilated unit at L = 256 (k 11,
+d 5, 16384 rows a sequence) and
 a folded unit at a T off the kernel's 128-row tile; then it times the 45
 ResBlock1 units of one random full-width folded generator at B=4, T=2048,
-stage by stage, against the plain version and the unfused cuDNN bf16 chain
-(the folded layout's arithmetic in the JAX package).  K6's ``ms``,
-``plain_ms`` and ``bound_ms`` are the sums over the 27 units of stages 2-4,
-which the wrapper's default sends to K6.
+stage by stage, against the plain version, the unfused cuDNN bf16 chain
+(the folded layout's arithmetic in the JAX package) and ``gemm_library_ms``
+(each conv's kept taps as one cuBLAS product); then the host microseconds
+per call and the device split of the 27 units' leaky-ReLU passes, first and
+second convs.  K6's ``ms``, ``plain_ms``, ``bound_ms`` and
+``gemm_library_ms`` are the sums over the 27 units of stages 2-4, which the
+wrapper's default sends to K6.
 
 Phase 5c (after phase 5b, so ``--kernels-only`` covers it) holds K5
 ``lynx_layer_fused``, K7 ``lynx_layer_fused_v3`` and K8 ``conv_tail``
@@ -108,8 +116,10 @@ steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
 
 Since the redesign of K1 and K4 on the Hopper GEMM core, phases 3 and 5
 also cover the edge shapes above and print ``gemm_library_ms``, the host
-cost per call and the per-pass device split; K1's and K4's entries in the
-kernels line carry ``gemm_library_ms`` and ``host_us``.  Phases 6 and 7
+cost per call and the per-pass device split; since that of K2 and K6 on the
+same core, phases 4 and 5d do too.  The entries of K1, K2, K4 and K6 in the
+kernels line carry ``gemm_library_ms`` and ``host_us`` (K2's and K6's also
+``cudnn_bf16_ms``).  Phases 6 and 7
 print the device's busy share of ``synthesize`` and phase 9 that of the
 ``module`` and ``v1`` sweep calls: the kernel time of one call in a
 device-only ``torch.profiler`` window over the host time of the same work.
@@ -158,19 +168,25 @@ def card() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, rounds: int = 3) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls back to back between two
+    events, the median of ``rounds`` such rounds (a host stall inside one
+    round idles the device and would count as kernel time)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
 
 
 def compare(name: str, got, ref) -> float:
@@ -284,6 +300,33 @@ def device_split(fn, calls: int = 10) -> str:
                      for name, us in sorted(parts.items(), key=lambda kv: -kv[1]))
 
 
+def labelled_split(fn, labels: dict, calls: int = 3):
+    """Device microseconds per call of ``fn``'s kernels summed under
+    ``labels`` (label -> pieces of the kernels' names); None when the trace
+    holds no device time."""
+    parts = _kernel_us(fn, calls)
+    if not parts:
+        return None
+    out = {label: 0.0 for label in labels}
+    for name, us in parts.items():
+        label = next((k for k, pieces in labels.items() if any(p in name for p in pieces)),
+                     "other")
+        out[label] = out.get(label, 0.0) + us
+    return out
+
+
+def split_text(split) -> str:
+    if split is None:
+        return "not measured (no device time in the trace)"
+    total = sum(split.values())
+    return "; ".join(f"{k}: {us:.1f} us ({us / total:.3f})" for k, us in split.items())
+
+
+# the launches of K2 and K6: the leaky-ReLU pass, conv 1 (bias + lrelu epilogue), conv 2
+TAPCONV_PARTS = {"lrelu pass": ("lrelu_kernel",), "conv 1": ("BiasLreluBf16",),
+                 "conv 2": ("ResidualBf16", "StageEpi")}
+
+
 def device_busy_ms(fn) -> float:
     """Device milliseconds of the kernels and copies of one call of ``fn``
     (their sum: one stream, so they do not overlap); 0 when not measured."""
@@ -377,12 +420,42 @@ def k2_bound(B, T, L, specs):
     return bound_ms(nbytes, mm)
 
 
+def products(a, weights) -> None:
+    """``a @ w`` for each ``w`` (cuBLAS), each output dropped before the next."""
+    import torch
+
+    for w in weights:
+        torch.matmul(a, w)
+
+
+def cudnn_bf16_stage(x, convs, biases, specs):
+    """The stage as unfused bf16 cuDNN convolutions (each conv's output, the
+    residual stream and the branch sum in bf16), timed beside K2; ``convs``
+    are ``[C_out, C_in, k]`` bf16, ``biases`` bf16."""
+    import torch.nn.functional as F
+
+    acc, ci = None, 0
+    for branch in specs:
+        h = x
+        for pair in branch:
+            t = h
+            for s in pair:
+                t = F.leaky_relu(t, 0.1).transpose(1, 2)
+                t = F.conv1d(F.pad(t, (s.pad_l, (s.k - 1) * s.d - s.pad_l)), convs[ci],
+                             dilation=s.d).transpose(1, 2) + biases[ci]
+                ci += 1
+            h = h + t
+        acc = h if acc is None else acc + h
+    return acc / len(specs)
+
+
 def check_k2(reps: int = 3) -> dict:
     import torch
 
     from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
 
-    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "stage_ms": []}
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "stage_ms": [],
+             "gemm_library_ms": 0.0, "cudnn_bf16_ms": 0.0, "host_us": 0.0}
     by = "operations"
     for stage, (T, L) in enumerate(((T_TIME * 8, 256), (T_TIME * 64, 128))):
         x, w, b, specs = k2_inputs(B_TIME, T, L, seed=stage)
@@ -393,15 +466,34 @@ def check_k2(reps: int = 3) -> dict:
         del got, ref
         ms = cuda_ms(lambda: K2.fused_resblock_stage(x, w, b, specs), reps)
         plain_ms = cuda_ms(lambda: K2.fused_resblock_stage_plain(x, w, b, specs), 1)
+        ks = [s.k for branch in specs for pair in branch for s in pair]
+        convs = [K2.unstack_taps(wi, k).permute(2, 1, 0).contiguous() for wi, k in zip(w, ks)]
+        b16 = [bi.to(x.dtype) for bi in b]
+        cudnn_ms = cuda_ms(lambda: cudnn_bf16_stage(x, convs, b16, specs), reps)
+        # the yardstick of the GEMM core: each conv's taps as one cuBLAS product [rows, L] @ [L, kL]
+        rows = x.reshape(-1, L)
+        gemm_ms = cuda_ms(lambda: products(rows, w), reps)
+        us = host_us(lambda: K2.fused_resblock_stage(x, w, b, specs), calls=20)
+        split = labelled_split(lambda: K2.fused_resblock_stage(x, w, b, specs), TAPCONV_PARTS)
         bms, by_s = k2_bound(B_TIME, T, L, specs)
-        log(f"[K2 stage {stage}] ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
-            f"({by_s}) share_of_bound={bms / ms:.3f}")
+        log(f"[K2 stage {stage}] ms={ms:.4f} plain_ms={plain_ms:.4f} cudnn_bf16_ms={cudnn_ms:.4f} "
+            f"gemm_library_ms={gemm_ms:.4f} bound_ms={bms:.4f} ({by_s}) "
+            f"share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f}")
+        log(f"[K2 stage {stage} split] {split_text(split)}")
         total["max_abs_err"] = max(total["max_abs_err"], err)
         total["stage_ms"].append(ms)
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += bms
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
+                       ("gemm_library_ms", gemm_ms), ("cudnn_bf16_ms", cudnn_ms), ("host_us", us)):
+            total[key] += v
         by = by_s if by_s == "bytes" else by
+        del x, w, b, b16, convs, rows
+    total["host_us"] /= 2
+    log(f"[K2] stages 0 + 1: ms={total['ms']:.4f} plain_ms={total['plain_ms']:.4f} "
+        f"cudnn_bf16_ms={total['cudnn_bf16_ms']:.4f} gemm_library_ms="
+        f"{total['gemm_library_ms']:.4f} bound_ms={total['bound_ms']:.4f} "
+        f"share_of_bound={total['bound_ms'] / total['ms']:.3f} host_us_per_call (mean of the "
+        f"stages)={total['host_us']:.1f}")
+    torch.cuda.empty_cache()
     return dict(total, bound_by=by)
 
 
@@ -687,6 +779,14 @@ def cudnn_bf16_unit(x, weights, d1, pad1_l, d2, pad2_l):
     return x + out
 
 
+def kept_stacked(w):
+    """The taps of ``[k, L, L]`` that are not all zero, stacked ``[L, kept L]``."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import sm90
+    from xiaoicesing_io_tpu_torch.ops.cuda.hifigan_stage import stack_taps
+
+    return stack_taps(w[sm90.kept_taps(w)]).contiguous()
+
+
 def check_k6(reps: int = 3) -> dict:
     """Phase 5d: K6 against its plain version, then the 45 ResBlock1 units of
     a random full-width folded generator at B=4, T=2048, stage by stage."""
@@ -700,7 +800,8 @@ def check_k6(reps: int = 3) -> dict:
 
     errs = []
     for label, shape in (
-            ("folded stage 2, k11 d5 (27 + 7 taps), L=128", (B_TIME, T_TIME * 128, 64, 11, 5, 2)),
+            ("folded stage 2, k11 d5 (17 of 27 + 7 taps kept), L=128",
+             (B_TIME, T_TIME * 128, 64, 11, 5, 2)),
             ("raw stage 0, k11 d5, L=256", (B_TIME, T_TIME * 8, 256, 11, 5, 1)),
             ("folded stage 3, k7 d3, L=128, off-tile T", (3, 4 * 4099, 32, 7, 3, 4))):
         x, w, geometry = k6_unit(*shape, seed=len(errs))
@@ -715,22 +816,29 @@ def check_k6(reps: int = 3) -> dict:
     torch.manual_seed(0)
     fast = FastNsfHifigan(Generator(vcfg).cuda(), torch.bfloat16, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
-    total = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0,
-             "dense_flop": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "gemm_ms": 0.0, "flop": 0.0,
+             "bytes": 0.0, "dense_flop": 0.0}
     stage_ms = []
     samples = T_TIME
+    k6_runs = []  # (x, units) of stages 2-4, for the device split of the 27 units
     for i, (u, stage) in enumerate(zip(vcfg.upsample_rates, fast.stages)):
         samples *= u
-        t = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "flop": 0.0, "bytes": 0.0}
+        t = {"ms": 0.0, "plain_ms": 0.0, "cudnn_ms": 0.0, "gemm_ms": 0.0, "flop": 0.0,
+             "bytes": 0.0}
         units = [unit for branch in stage["units"] for unit in branch]
         L = units[0][0][0].shape[-1]
         x = torch.randn(B_TIME, samples // stage["F"], L, generator=g, device="cuda")
         x = x.to(torch.bfloat16)
         rows = x.shape[0] * x.shape[1]
+        x2d = x.reshape(rows, L)
         for weights, geometry in units:
             t["ms"] += cuda_ms(lambda: K6.resblock_unit(x, *weights, **geometry), reps)
             t["plain_ms"] += cuda_ms(lambda: K6.resblock_unit_plain(x, *weights, **geometry), 1)
             t["cudnn_ms"] += cuda_ms(lambda: cudnn_bf16_unit(x, weights, **geometry), reps)
+            # the yardstick of the GEMM core: each conv's kept taps as one cuBLAS product
+            kept = [kept_stacked(weights[0]), kept_stacked(weights[2])]
+            t["gemm_ms"] += cuda_ms(lambda: products(x2d, kept), reps)
+            del kept
             flop, nbytes = k6_bound(rows, weights)
             t["flop"] += flop
             t["bytes"] += nbytes
@@ -740,23 +848,36 @@ def check_k6(reps: int = 3) -> dict:
         bms, by = bound_ms(t["bytes"], t["flop"])
         log(f"[K6 stage {i}] {len(units)} units, L={L}, {rows} rows: ms={t['ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} cudnn_bf16_ms={t['cudnn_ms']:.4f} "
-            f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / t['ms']:.3f} "
-            f"tflop={t['flop'] / 1e12:.4f}")
+            f"gemm_library_ms={t['gemm_ms']:.4f} bound_ms={bms:.4f} ({by}) "
+            f"share_of_bound={bms / t['ms']:.3f} tflop={t['flop'] / 1e12:.4f}")
         stage_ms.append(t["ms"])
         if i >= 2:  # the units the wrapper's default sends to K6
             for key in t:
                 total[key] += t[key]
-        del x
+            k6_runs.append((x, units))
+        del x, x2d
+
+    def k6_units():
+        for x, units in k6_runs:
+            for weights, geometry in units:
+                K6.resblock_unit(x, *weights, **geometry)
+
+    x2, units2 = k6_runs[0]
+    us = host_us(lambda: K6.resblock_unit(x2, *units2[-1][0], **units2[-1][1]))
+    split = labelled_split(k6_units, TAPCONV_PARTS, calls=2)
     bms, by = bound_ms(total["bytes"], total["flop"])
     dense_ms = total["dense_flop"] / BF16_FLOPS * 1e3
     log(f"[K6] stages 2-4, 27 units: ms={total['ms']:.4f} plain_ms={total['plain_ms']:.4f} "
-        f"cudnn_bf16_ms={total['cudnn_ms']:.4f} bound_ms={bms:.4f} ({by}, "
-        f"{total['flop'] / 1e12:.4f} TFLOP of non-zero taps; {dense_ms:.4f} ms counting the "
-        f"all-zero folded taps the kernel also computes) share_of_bound={bms / total['ms']:.3f}")
-    del fast
+        f"cudnn_bf16_ms={total['cudnn_ms']:.4f} gemm_library_ms={total['gemm_ms']:.4f} "
+        f"bound_ms={bms:.4f} ({by}, {total['flop'] / 1e12:.4f} TFLOP of non-zero taps, the "
+        f"ones the kernel computes; {dense_ms:.4f} ms counting the all-zero folded taps too) "
+        f"share_of_bound={bms / total['ms']:.3f} host_us_per_call={us:.1f}")
+    log(f"[K6 split] 27 units: {split_text(split)}")
+    del fast, k6_runs, x2, units2
     torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": bms, "bound_by": by, "stage_ms": stage_ms}
+            "bound_ms": bms, "bound_by": by, "gemm_library_ms": total["gemm_ms"],
+            "cudnn_bf16_ms": total["cudnn_ms"], "host_us": us, "stage_ms": stage_ms}
 
 
 SWEEP_STEPS = 50

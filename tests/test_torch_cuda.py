@@ -134,36 +134,45 @@ def test_gemm_core_matches_matmul(cuda, M, N, K, bn):
     assert ((got.float() - ref).abs() <= 1e-2 * ref.abs() + 1e-2).all()
 
 
-def _stage(rng, L, kernels, dils, device):
+def _stage(rng, L, kernels, dils, device, F=1):
+    """A stage of width L: raw dilated taps (F = 1), or the taps of width
+    L / F folded by F as the vocoder folds them (asymmetric pads, all-zero
+    taps)."""
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
+
+    C = L // F
     specs, weights, biases = [], [], []
     for k, ds in zip(kernels, dils):
         branch = []
         for d in ds:
             pair = []
             for dd in (d, 1):
-                w = 0.1 * rng.standard_normal((k, L, L)) / np.sqrt(k)
-                weights.append(K2.stack_taps(w.astype(np.float32)).to(device, torch.bfloat16)
-                               .contiguous())
-                biases.append(torch.tensor(0.1 * rng.standard_normal(L), dtype=torch.float32,
-                                           device=device))
-                pair.append(K2.ConvSpec(k, dd, (k - 1) * dd // 2))
+                w = (0.1 * rng.standard_normal((k, C, C)) / np.sqrt(k * F)).astype(np.float32)
+                b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+                taps, b, pad_l, dil = fold_conv(w, b, F, dilation=dd)
+                weights.append(K2.stack_taps(taps).to(device, torch.bfloat16).contiguous())
+                biases.append(torch.tensor(b, dtype=torch.float32, device=device))
+                pair.append(K2.ConvSpec(taps.shape[0], dil, pad_l))
             branch.append(tuple(pair))
         specs.append(tuple(branch))
     return tuple(specs), weights, biases
 
 
-@pytest.mark.parametrize("L,T,kernels,dils", [
-    (128, 777, (3, 7, 11), ((1, 3, 5),) * 3),   # the HiFiGAN default, ragged T
-    (256, 300, (3, 7, 11), ((1, 3, 5),) * 3),   # stage-0 width
-    (128, 257, (3, 5), ((1, 2), (2, 6))),       # other geometry, two branches
-    (64, 200, (3, 7, 11), ((1, 3, 5),) * 3),    # fewer column fragments than warps
-    (192, 130, (3, 7, 11), ((1, 3, 5),) * 3),   # warps with one and two fragments
-    (384, 100, (3, 7, 11), ((1, 3, 5),) * 3),   # three fragments per warp, 64-row tiles
-    (512, 100, (3, 7, 11), ((1, 3, 5),) * 3),   # the widest
+@pytest.mark.parametrize("L,T,kernels,dils,F", [
+    (128, 777, (3, 7, 11), ((1, 3, 5),) * 3, 1),   # the HiFiGAN default, ragged T
+    (256, 300, (3, 7, 11), ((1, 3, 5),) * 3, 1),   # stage-0 width
+    (128, 257, (3, 5), ((1, 2), (2, 6)), 1),       # other geometry, two branches
+    (64, 200, (3, 7, 11), ((1, 3, 5),) * 3, 1),    # one 128-column tile, half of it guarded
+    (192, 130, (3, 7, 11), ((1, 3, 5),) * 3, 1),   # a guarded second N tile
+    (384, 100, (3, 7, 11), ((1, 3, 5),) * 3, 1),   # three N tiles
+    (512, 100, (3, 7, 11), ((1, 3, 5),) * 3, 1),   # the widest: 256-column tiles
+    (128, 300, (3, 19), ((1, 7), (25,)), 1),       # far reaches: 450 and a second conv's 18
+    (48, 150, (3, 7), ((1, 3), (5,)), 1),          # L % 64 != 0: TMA zeros past the width
+    (128, 1000, (3, 7, 11), ((1, 3, 5),) * 3, 2),  # folded stage 2: 126 of 144 taps kept
 ])
-def test_resblock_stage_kernel_matches_plain(cuda, L, T, kernels, dils):
+def test_resblock_stage_kernel_matches_plain(cuda, L, T, kernels, dils, F):
     rng = np.random.default_rng(1)
-    specs, w, b = _stage(rng, L, kernels, dils, cuda)
+    specs, w, b = _stage(rng, L, kernels, dils, cuda, F)
     x = torch.tensor(rng.standard_normal((2, T, L)), dtype=torch.float32,
                      device=cuda).to(torch.bfloat16)
     before = K2.launches
@@ -178,33 +187,36 @@ def test_resblock_stage_kernel_matches_plain(cuda, L, T, kernels, dils):
 # K6: one ResBlock1 unit, raw dilated taps or time-folded taps
 # ---------------------------------------------------------------------------
 
-def _unit(rng, C, k, d, F, device):
+def _unit(rng, C, k, d, F, device, d2=1):
     """Unit weights of width C folded by F (F = 1: the raw dilated taps) in
-    the kernel's operand types, and their geometry."""
+    the kernel's operand types, and their geometry; the second conv's
+    dilation is d2."""
     from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
 
     w1, w2 = (0.1 * rng.standard_normal((k, C, C)) / np.sqrt(k) for _ in range(2))
     b1, b2 = (0.1 * rng.standard_normal(C) for _ in range(2))
     f1 = fold_conv(w1.astype(np.float32), b1.astype(np.float32), F, dilation=d)
-    f2 = fold_conv(w2.astype(np.float32), b2.astype(np.float32), F)
+    f2 = fold_conv(w2.astype(np.float32), b2.astype(np.float32), F, dilation=d2)
     weights = K6.prepare_unit_weights(f1[0], f1[1], f2[0], f2[1], torch.bfloat16, device)
     return weights, dict(d1=f1[3], pad1_l=f1[2], d2=f2[3], pad2_l=f2[2])
 
 
-@pytest.mark.parametrize("B,T,C,k,d,F", [
-    (2, 1000, 64, 11, 5, 2),    # folded stage 2: 27 + 7 taps at L = 128, T off the tile
-    (2, 777, 32, 7, 3, 4),      # folded stage 3
-    (1, 300, 16, 3, 1, 8),      # folded stage 4: L = 128
-    (2, 300, 256, 11, 5, 1),    # raw dilated taps at L = 256 (stage 0): reach 50 and 10
-    (2, 257, 128, 7, 3, 1),     # raw, L = 128 (stage 1)
-    (3, 5, 128, 11, 5, 1),      # fewer rows than the halo
-    (2, 200, 48, 3, 1, 1),      # three column fragments: warps sit out
-    (2, 150, 192, 3, 5, 1),     # L % 32 == 16 at the 80-row tile
-    (1, 130, 512, 3, 5, 1),     # the widest: 64-row tiles, four fragments a warp
+@pytest.mark.parametrize("B,T,C,k,d,F,d2", [
+    (2, 1000, 64, 11, 5, 2, 1),    # folded stage 2: 17 of 27 + 3 taps at L = 128, T off the tile
+    (2, 777, 32, 7, 3, 4, 1),      # folded stage 3
+    (1, 300, 16, 3, 1, 8, 1),      # folded stage 4: L = 128
+    (2, 300, 256, 11, 5, 1, 1),    # raw dilated taps at L = 256 (stage 0): reach 50 and 2
+    (2, 257, 128, 7, 3, 1, 1),     # raw, L = 128 (stage 1)
+    (3, 5, 128, 11, 5, 1, 1),      # fewer rows than the reach
+    (2, 200, 48, 3, 1, 1, 1),      # L % 64 != 0: TMA zeros past the width
+    (2, 150, 192, 3, 5, 1, 1),     # a guarded second N tile
+    (1, 130, 512, 3, 5, 1, 1),     # the widest: 256-column tiles
+    (2, 300, 128, 15, 5, 1, 1),    # a first-conv reach of 14 * 5 = 70
+    (2, 300, 128, 3, 1, 1, 9),     # a second-conv reach of 2 * 9 = 18
 ])
-def test_resblock_unit_kernel_matches_plain(cuda, B, T, C, k, d, F):
+def test_resblock_unit_kernel_matches_plain(cuda, B, T, C, k, d, F, d2):
     rng = np.random.default_rng(9)
-    weights, geometry = _unit(rng, C, k, d, F, cuda)
+    weights, geometry = _unit(rng, C, k, d, F, cuda, d2)
     x = _bf16(rng, (B, T // F, F * C), cuda)
     before = K6.launches
     got = K6.resblock_unit(x, *weights, **geometry)
@@ -234,12 +246,10 @@ def test_resblock_unit_raises_instead_of_falling_back(cuda):
         wc, gc = _unit(rng, C, 3, 1, 1, cuda)
         with pytest.raises(ValueError, match="C % 16"):
             K6.resblock_unit(_bf16(rng, (1, 16, C), cuda), *wc, **gc)
-    # reaches past the staged halos: 14 * 5 = 70 in the first conv, 2 * 9 = 18 in the second
-    w_far, g_far = _unit(rng, 128, 15, 5, 1, cuda)
-    with pytest.raises(ValueError, match="reach"):
-        K6.resblock_unit(x, *w_far, **g_far)
-    with pytest.raises(ValueError, match="reach"):
-        K6.resblock_unit(x, *weights, **dict(geometry, d2=9, pad2_l=9))
+    # an input the kernel's vector loads cannot read
+    shifted = torch.zeros(64 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 64, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        K6.resblock_unit(shifted, *weights, **geometry)
     assert K6.launches == before
 
 
@@ -294,17 +304,17 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="dim % 64"):
         K1.lynx_conv_module(torch.zeros(1, 16, 96, device=cuda, dtype=torch.bfloat16),
                             K1.prepare_weights(*_k1_params(rng, 96, 192, 31, cuda)))
-    # an operand that is not aligned for the kernel's vector and WMMA loads
+    # an operand that is not aligned for TMA
     shifted = torch.zeros(16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 16, 128)
     with pytest.raises(ValueError, match="aligned"):
         K1.lynx_conv_module(shifted, weights)
     specs, w, b = _stage(rng, 128, (3,), ((1,),), cuda)
     with pytest.raises(TypeError, match="bf16"):
         K2.fused_resblock_stage(x, w, b, specs)
-    w_shifted = [torch.cat([torch.zeros(8, device=cuda, dtype=torch.bfloat16), t.flatten()])[8:]
-                 .view(t.shape) for t in w]
+    # an input the kernel's vector loads cannot read (the weights are copied on the host)
+    x_shifted = torch.zeros(16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(1, 16, 128)
     with pytest.raises(ValueError, match="aligned"):
-        K2.fused_resblock_stage(x.to(torch.bfloat16), w_shifted, b, specs)
+        K2.fused_resblock_stage(x_shifted, w, b, specs)
     # widths the kernel does not take
     for L in (120, 640):
         specs, w, b = _stage(rng, L, (3,), ((1,),), cuda)

@@ -359,3 +359,317 @@ def test_k1_width_checks(dim, inner, k, ok):
     else:
         with pytest.raises(ValueError, match="dim % 64"):
             K1.check_widths(dim, inner, k)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K6: the tap table, the K rounding and numpy walks of their launches
+# ---------------------------------------------------------------------------
+
+def _folded(rng, C, k, d, F):
+    """A random conv of width C folded by F (F = 1: the raw dilated taps):
+    ``(taps [k', F*C, F*C] f32, bias, pad_l, dilation)``."""
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
+
+    w = (0.3 * rng.standard_normal((k, C, C)) / np.sqrt(k * C)).astype(np.float32)
+    b = (0.05 * rng.standard_normal(C)).astype(np.float32)
+    W2, b2, pad_l, dil = fold_conv(w, b, F, dilation=d)
+    return torch.from_numpy(np.ascontiguousarray(W2)), torch.from_numpy(b2), pad_l, dil
+
+
+@pytest.mark.parametrize("C,k,d,F,n_taps,kept", [
+    (128, 11, 5, 1, 11, list(range(11))),   # raw dilated taps, centred: rows -25 .. 25
+    (32, 7, 3, 4, 7, list(range(7))),        # folded stage 3, conv 1: every tap non-zero
+    (64, 11, 5, 2, 27, None),                # folded stage 2, conv 1: 17 of 27 non-zero
+    (64, 3, 1, 2, 3, [0, 1, 2]),             # folded stage 2, conv 2
+])
+def test_tap_table_keeps_nonzero_taps_at_their_rows(C, k, d, F, n_taps, kept):
+    taps, _, pad_l, dil = _folded(np.random.default_rng(k + F), C, k, d, F)
+    assert taps.shape[0] == n_taps
+    got = sm90.kept_taps(taps)
+    nonzero = [j for j in range(n_taps) if taps[j].abs().max() > 0]
+    assert got == (kept if kept is not None else nonzero)
+    if (k, d, F) == (11, 5, 2):
+        assert len(got) == 17 and pad_l == 13
+    rows = sm90.tap_rows(got, dil, pad_l)
+    assert rows == [j * dil - pad_l for j in got]
+    if F == 1:  # the raw conv's SAME padding: the taps centred on the row
+        assert rows == [(j - k // 2) * d for j in range(k)]
+    # the producer's plan: each tap's 64-wide blocks at its row shift
+    plan = sm90.row_plan(sm90.tap_k(F * C), rows)
+    blocks = sm90.tap_k(F * C) // 64
+    assert [s for _, s in plan] == [r for r in rows for _ in range(blocks)]
+    assert [c for c, _ in plan] == [64 * i for _ in rows for i in range(blocks)]
+
+
+def test_tap_table_of_the_shipped_folded_stages():
+    """Every ResBlock1 conv of the shipped vocoder's stages 2-4, folded as the
+    vocoder folds them: 126 of 144, 92 of 92 and 66 of 66 taps kept."""
+    rng = np.random.default_rng(0)
+    for F, C, total, nonzero in ((2, 64, 144, 126), (4, 32, 92, 92), (8, 16, 66, 66)):
+        n = kept = 0
+        for k, dils in zip((3, 7, 11), ((1, 3, 5),) * 3):
+            for d in dils:
+                for dd in (d, 1):
+                    taps = _folded(rng, C, k, dd, F)[0]
+                    n += taps.shape[0]
+                    kept += len(sm90.kept_taps(taps))
+        assert (n, kept) == (total, nonzero)
+
+
+def test_kept_taps_of_an_all_zero_conv_is_one_tap():
+    assert sm90.kept_taps(torch.zeros(5, 16, 16)) == [0]
+    taps = torch.zeros(5, 16, 16)
+    taps[3, 2, 7] = 1e-30
+    assert sm90.kept_taps(taps) == [3]
+
+
+@pytest.mark.parametrize("L,a_k", [(48, 64), (192, 192), (16, 64), (128, 128), (320, 320),
+                                   (208, 256), (512, 512)])
+def test_tap_k_rounding_and_k_major_copy(L, a_k):
+    """One tap's K is the width rounded up to 64; the K-major copy of the
+    kept taps is zero past the width (A's columns there are TMA zeros)."""
+    assert sm90.tap_k(L) == a_k
+    taps = torch.randn(4, L, L)
+    taps[2] = 0
+    kept = sm90.kept_taps(taps)
+    assert kept == [0, 1, 3]
+    wk = sm90.tap_k_major(taps, kept)
+    assert wk.shape == (L, 3 * a_k) and wk.is_contiguous()
+    per_tap = wk.view(L, 3, a_k)
+    assert torch.equal(per_tap[:, :, L:], torch.zeros(L, 3, a_k - L))
+    for i, j in enumerate(kept):
+        assert torch.equal(per_tap[:, i, :L], taps[j].t())
+
+
+def test_tap_conv_plans_the_operands_and_refuses_too_many_taps(monkeypatch):
+    monkeypatch.setattr(sm90, "encode", lambda lib, t, box_rows: ("map", tuple(t.shape), box_rows))
+    taps, _, _, _ = _folded(np.random.default_rng(1), 64, 11, 5, 2)
+    c = sm90.tap_conv("lib", taps.to(torch.bfloat16))
+    assert len(c.kept) == 17 and list(c.kept_c) == c.kept
+    assert c.L == 128 and c.bn == 128 and c.wk.shape == (128, 17 * 128)
+    assert c.map_w == ("map", (128, 17 * 128), 128)
+    with pytest.raises(ValueError, match="at most 64 taps"):
+        sm90.tap_conv("lib", torch.ones(65, 16, 16))
+
+
+def test_kept_on_builds_once_and_again_after_an_in_place_write():
+    w = torch.randn(3, 16, 16)
+    calls = []
+
+    def make(t):
+        calls.append(t)
+        return (len(calls),)
+
+    assert sm90.kept_on(w, make) == sm90.kept_on(w, make) == (1,)
+    w.mul_(2.0)
+    assert sm90.kept_on(w, make) == (2,)
+    assert len(calls) == 2 and all(t is w for t in calls)
+
+
+def _a_box(a, m0, shift, col):
+    """The 128 x 64 box TMA loads from ``a [rows, width]`` at (col, m0 +
+    shift), zero outside the rows and past the width."""
+    rows = m0 + shift + np.arange(sm90.BM)
+    valid = (rows >= 0) & (rows < a.shape[0])
+    tile = np.zeros((sm90.BM, sm90.BK))
+    part = a[rows[valid], col:col + sm90.BK]
+    tile[valid, :part.shape[1]] = part
+    return tile
+
+
+def _conv_walk(a, taps, d, pad_l):
+    """One tap conv on the core, tile by tile: ``a [B, R, L]`` -> f64 ``z [B,
+    R, L]`` over the kept taps of ``taps [k, L, L]``, each sequence its own
+    grid z."""
+    B, R, L = a.shape
+    kept = sm90.kept_taps(taps)
+    wk = sm90.tap_k_major(taps, kept).double().numpy()
+    plan = sm90.row_plan(sm90.tap_k(L), sm90.tap_rows(kept, d, pad_l))
+    bn = sm90.tile_n(L)
+    z = np.zeros((B, R, L))
+    for b in range(B):
+        for m0 in range(0, R, sm90.BM):
+            for n0 in range(0, L, bn):
+                acc = np.zeros((sm90.BM, bn))
+                for kb, (col, shift) in enumerate(plan):
+                    bt = np.zeros((bn, sm90.BK))
+                    part = wk[n0:n0 + bn, kb * sm90.BK:(kb + 1) * sm90.BK]
+                    bt[:part.shape[0]] = part
+                    acc += _a_box(a[b], m0, shift, col) @ bt.T
+                r, c = min(sm90.BM, R - m0), min(bn, L - n0)
+                z[b, m0:m0 + r, n0:n0 + c] = acc[:r, :c]
+    return z
+
+
+def _lrelu(v):
+    return np.where(v >= 0, v, 0.1 * v)
+
+
+def _rounding(dtype):
+    """The kernels' rounding to the activation dtype (none in f32)."""
+    if dtype == torch.float32:
+        return lambda v: v
+    return lambda v: torch.from_numpy(v).to(dtype).double().numpy()
+
+
+def _k6_walk(x, w1, b1, w2, b2, d1, p1, d2, p2, dtype):
+    """K6's three launches: the leaky-ReLU pass, conv 1 with its bias +
+    leaky-ReLU epilogue, conv 2 with the f32 residual epilogue."""
+    rnd = _rounding(dtype)
+    b1, b2 = b1.double().numpy(), b2.double().numpy()
+    a = rnd(_lrelu(x))
+    t2 = rnd(_lrelu(_conv_walk(a, w1, d1, p1) + b1))
+    return rnd(x + (_conv_walk(t2, w2, d2, p2) + b2))
+
+
+def _close(got, ref, dtype):
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+    else:  # bf16 on both sides: the card tests' bar
+        scale = np.abs(ref).max()
+        assert np.abs(got - ref).max() <= 0.02 * scale
+        assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.9999
+
+
+@pytest.mark.parametrize("B,T,C,k,d,F,d2,dtype", [
+    (2, 300, 64, 11, 5, 2, 1, torch.float32),    # folded stage 2: 17 of 27 taps, pads 13 and 1
+    (2, 150, 32, 7, 3, 4, 1, torch.float32),     # folded stage 3
+    (1, 200, 16, 11, 5, 8, 1, torch.float32),    # folded stage 4
+    (2, 130, 128, 11, 5, 1, 1, torch.float32),   # raw dilated taps, T off the tile
+    (2, 50, 48, 15, 5, 1, 9, torch.float32),     # L % 64 != 0, reaches 70 and 18
+    (1, 140, 192, 3, 1, 1, 1, torch.float32),    # a_k 192, a guarded second N tile
+    (2, 5, 128, 11, 5, 1, 1, torch.float32),     # fewer rows than the reach
+    (2, 300, 64, 11, 5, 2, 1, torch.bfloat16),   # the card's rounding points
+])
+def test_k6_launches_reproduce_plain(B, T, C, k, d, F, d2, dtype):
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
+
+    rng = np.random.default_rng(C + k + F)
+    w1, b1, p1, d1 = _folded(rng, C, k, d, F)
+    w2, b2, p2, dd2 = _folded(rng, C, 3, d2, F)
+    L = F * C
+    x = torch.tensor(rng.standard_normal((B, T // F if F > 1 else T, L)),
+                     dtype=torch.float32).to(dtype)
+    w1, b1, w2, b2 = K6.prepare_unit_weights(w1, b1, w2, b2, dtype)
+    geometry = dict(d1=d1, pad1_l=p1, d2=dd2, pad2_l=p2)
+    ref = K6.resblock_unit_plain(x, w1, b1, w2, b2, **geometry).double().numpy()
+    got = _k6_walk(x.double().numpy(), w1, b1, w2, b2, d1, p1, dd2, p2, dtype)
+    assert np.abs(ref - x.double().numpy()).max() > 0.05  # the convs add something
+    _close(got, ref, dtype)
+
+
+def _k2_walk(x, weights, biases, specs, dtype):
+    """K2's launch sequence (``launch_plan``): one leaky-ReLU pass, then per
+    unit conv 1 and conv 2 with the stage's bookkeeping in its epilogue."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+
+    rnd = _rounding(dtype)
+    a0 = rnd(_lrelu(x))
+    a1 = h = acc = out = None
+    for step in K2.launch_plan(specs):
+        s1, s2 = specs[step.branch][step.unit]
+        w1 = K2.unstack_taps(weights[step.conv], s1.k)
+        w2 = K2.unstack_taps(weights[step.conv + 1], s2.k)
+        b1, b2 = (biases[step.conv + i].double().numpy() for i in (0, 1))
+        t2 = rnd(_lrelu(_conv_walk(a0 if step.first else a1, w1, s1.d, s1.pad_l) + b1))
+        v = (x if step.first else h) + (_conv_walk(t2, w2, s2.d, s2.pad_l) + b2)
+        if step.mode & K2.WRITE_H:
+            h, a1 = v, rnd(_lrelu(v))
+        if step.mode & K2.READ_ACC:
+            v = acc + v
+        if step.mode & K2.WRITE_ACC:
+            acc = v
+        if step.mode & K2.WRITE_OUT:
+            out = rnd(v / len(specs))
+    return out
+
+
+def _k2_stage(rng, C, kernels, dils, F, dtype):
+    """Stacked weights, biases and specs of a stage of width C folded by F."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+
+    weights, biases, specs = [], [], []
+    for k, ds in zip(kernels, dils):
+        branch = []
+        for d in ds:
+            pair = []
+            for dd in (d, 1):
+                taps, b, pad_l, dil = _folded(rng, C, k, dd, F)
+                weights.append(K2.stack_taps(taps).to(dtype).contiguous())
+                biases.append(b.float())
+                pair.append(K2.ConvSpec(taps.shape[0], dil, pad_l))
+            branch.append(tuple(pair))
+        specs.append(tuple(branch))
+    return weights, biases, tuple(specs)
+
+
+@pytest.mark.parametrize("B,T,C,kernels,dils,F,dtype", [
+    (2, 150, 64, (3, 7, 11), ((1, 3, 5),) * 3, 1, torch.float32),  # the default, T off the tile
+    (2, 200, 32, (3, 7, 11), ((1, 3, 5),) * 3, 2, torch.float32),  # folded stage-2 taps
+    (2, 140, 48, (3, 5), ((1, 2), (13, 25)), 1, torch.float32),    # two branches, far reaches
+    (1, 90, 192, (7,), ((1, 3),), 1, torch.float32),               # one branch, a_k 192
+    (2, 70, 64, (11,), ((5,),), 1, torch.float32),                 # one branch, one unit
+    (2, 150, 64, (3, 7, 11), ((1, 3, 5),) * 3, 1, torch.bfloat16),
+])
+def test_k2_launch_plan_reproduces_plain(B, T, C, kernels, dils, F, dtype):
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+
+    rng = np.random.default_rng(C + T)
+    weights, biases, specs = _k2_stage(rng, C, kernels, dils, F, dtype)
+    x = torch.tensor(rng.standard_normal((B, T, F * C)), dtype=torch.float32).to(dtype)
+    ref = K2.fused_resblock_stage_plain(x, weights, biases, specs).double().numpy()
+    got = _k2_walk(x.double().numpy(), weights, biases, specs, dtype)
+    assert np.abs(ref).max() > 0.1
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("units", [(1,), (3,), (3, 3), (3, 3, 3), (2, 1, 3)])
+def test_k2_launch_plan_modes(units):
+    """A branch's inner units write h and the next A; its last unit starts
+    (first branch), extends or, last, finishes the f32 sum."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+
+    specs = tuple((None,) * n for n in units)
+    plan = K2.launch_plan(specs)
+    assert len(plan) == sum(units)
+    assert [s.conv for s in plan] == list(range(0, 2 * sum(units), 2))
+    for s in plan:
+        last_unit = s.unit == units[s.branch] - 1
+        assert s.first == (s.unit == 0)
+        if not last_unit:
+            assert s.mode == K2.WRITE_H
+        else:
+            store = K2.WRITE_OUT if s.branch == len(units) - 1 else K2.WRITE_ACC
+            assert s.mode == store | (K2.READ_ACC if s.branch else 0)
+
+
+@pytest.mark.parametrize("k,d,pad_l,ok", [(3, 1, 1, True), (15, 5, 70, True), (1, 1, 0, True),
+                                          (11, 5, 51, False), (3, 1, -1, False), (3, 0, 0, False),
+                                          (3, 1 << 29, 0, False)])
+def test_tap_conv_geometry_checks(k, d, pad_l, ok):
+    """Any reach and any left pad in [0, (k - 1) * d] is taken; row shifts
+    stay 32-bit."""
+    if ok:
+        sm90.check_tap_conv("f", k, d, pad_l)
+    else:
+        with pytest.raises(ValueError, match="d >= 1"):
+            sm90.check_tap_conv("f", k, d, pad_l)
+
+
+def test_folded_convs_are_block_sparse():
+    """At stages 2-4 of the shipped vocoder, a folded conv's taps are F x F
+    grids of C x C blocks, and only 12.5-78.6 % of those blocks are not all
+    zero (the core computes whole kept taps: the rest is work a block-sparse
+    product would skip)."""
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_fast import fold_conv
+
+    shares = []
+    for F, C in ((2, 64), (4, 32), (8, 16)):
+        for k, dils in zip((3, 7, 11), ((1, 3, 5),) * 3):
+            for d in dils:
+                for dd in (d, 1):
+                    W2 = fold_conv(np.ones((k, C, C), np.float32), None, F, dilation=dd)[0]
+                    blocks = W2.reshape(W2.shape[0], F, C, F, C).transpose(0, 1, 3, 2, 4)
+                    shares.append((np.abs(blocks).reshape(W2.shape[0], F, F, -1).max(-1) > 0)
+                                  .mean())
+    assert min(shares) == 0.125 and round(max(shares), 3) == 0.786

@@ -181,7 +181,7 @@ extern "C" int lynx_conv_module_launch(
   if (e != cudaSuccess) return (int)e;
 
   const SwigluEpi swiglu{static_cast<const float*>(b_in), static_cast<float*>(u), inner};
-  const sm90::Args head{rows, 2 * inner, dim, 1, 0};
+  const sm90::Args head{rows, 2 * inner, dim, 1, {0}};
   e = bn_in == 256 ? sm90::launch<256, true>(map_xn, map_w_in, head, 1, swiglu, s)
                    : sm90::launch<128, true>(map_xn, map_w_in, head, 1, swiglu, s);
   if (e != cudaSuccess) return (int)e;
@@ -195,7 +195,7 @@ extern "C" int lynx_conv_module_launch(
 
   const sm90::StoreBiasBf16 store{static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out),
                                   rows, dim};
-  const sm90::Args tail{rows, dim, inner, 1, 0};
+  const sm90::Args tail{rows, dim, inner, 1, {0}};
   e = bn_out == 256 ? sm90::launch<256, false>(map_act, map_w2, tail, 1, store, s)
                     : sm90::launch<128, false>(map_act, map_w2, tail, 1, store, s);
   return (int)e;

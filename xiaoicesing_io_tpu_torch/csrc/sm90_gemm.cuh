@@ -1,13 +1,17 @@
-// Hopper GEMM core shared by csrc/lynx_conv.cu (K1) and csrc/wavenet_block.cu (K4), sm_90a.
+// Hopper GEMM core shared by csrc/lynx_conv.cu (K1), csrc/wavenet_block.cu (K4) and, through
+// csrc/hifigan_tapconv.cuh, csrc/hifigan_stage.cu (K2) and csrc/hifigan_resblock.cu (K6);
+// sm_90a.
 //
 //     out[b, r, n] = epilogue( sum_k A'[b, r, k] * B[n, k] )
 //
-// A is a bf16 tensor [batch, rows, a_k] read through a 3-D TMA tensor map; the reduction runs over
-// K = taps * a_k, where tap j reads A's rows shifted by (j - taps / 2) * dil (taps = 1: a plain
-// product; taps = 3: a dilated k=3 conv over the rows of each batch entry). Rows outside
-// [0, rows) read as zero: TMA fills out-of-bounds boxes with zeros, which is exactly the conv's
-// per-sequence SAME padding, and the tail of a ragged last row tile. B is K-major bf16 [N, K]
-// (row n holds output column n's weights). Both maps are 3-D (B's outer extent is 1).
+// A is a bf16 tensor [batch, rows, A's width] read through a 3-D TMA tensor map; the reduction runs
+// over K = taps * a_k (a_k: A's width rounded up to 64; TMA fills the columns past the width with
+// zeros), where tap j reads A's rows shifted by tap_row[j] (one tap at 0: a plain product; K4's
+// {-d, 0, d}: a dilated k=3 conv; a conv's kept taps at tap * d - pad_l: any conv over the rows of
+// each batch entry, its all-zero taps left out by the host). Rows outside [0, rows) read as zero:
+// TMA fills out-of-bounds boxes with zeros, which is exactly the conv's per-sequence zero padding,
+// and the tail of a ragged last row tile. B is K-major bf16 [N, K] (row n holds output column n's
+// weights). Both maps are 3-D (B's outer extent is 1).
 //
 // Design (one output tile of 128 rows x BN columns per block, BN = 128 or 256, BK = 64):
 //   - copies: one producer thread issues TMA loads of the A and B tiles (128-byte swizzle, 64 bf16
@@ -17,18 +21,23 @@
 //     stays in flight while the next is issued, and a stage goes back to the producer when its
 //     group has completed;
 //   - registers: setmaxnreg moves registers from the producer warpgroup (40) to the consumers (232);
-//   - epilogue: a functor's value() turns each pair of adjacent accumulator columns, with its
-//     (batch, row, column), into a pair of outputs (Epi::Out: bf16 or f32); rows >= rows and
-//     columns >= cols are never passed. With kPaired, tile p holds the columns p * BN/2.. of the
-//     first and of the second half of a column-paired B (the host builds it), and value() gets
-//     both halves of a column at once: in wgmma's accumulator layout columns c and c + BN/2 of a
-//     tile sit in the same thread, so a gate can be register-local. The pairs are staged in
-//     shared memory and written out in 16-byte pieces, a warp to a row of Epi::row(batch, row):
-//     stored straight from the accumulator layout, a warp's pairs of bf16 would cover 16 bytes
-//     of each of eight rows, half a sector each.
+//   - epilogue, one of two kinds:
+//     * pairs: a functor's value() turns each pair of adjacent accumulator columns, with its
+//       (batch, row, column), into a pair of outputs (Epi::Out: bf16 or f32); rows >= rows and
+//       columns >= cols are never passed. With kPaired, tile p holds the columns p * BN/2.. of the
+//       first and of the second half of a column-paired B (the host builds it), and value() gets
+//       both halves of a column at once: in wgmma's accumulator layout columns c and c + BN/2 of a
+//       tile sit in the same thread, so a gate can be register-local. The pairs are staged in
+//       shared memory and written out in 16-byte pieces, a warp to a row of Epi::row(batch, row):
+//       stored straight from the accumulator layout, a warp's pairs of bf16 would cover 16 bytes
+//       of each of eight rows, half a sector each.
+//     * rows (a functor with load4 and store4, see IsRowwise): the f32 accumulators themselves
+//       are staged, and the functor gets four adjacent columns of one row at a time, neighbouring
+//       threads on neighbouring columns, so an epilogue with several inputs and outputs (a
+//       residual read, an f32 and a bf16 write) reads and writes each of them in whole sectors.
 // Tensor maps are encoded on the host through sm90_encode_map (cuTensorMapEncodeTiled, looked up
 // with cudaGetDriverEntryPoint, so the library links nothing) and passed to the kernel as
-// __grid_constant__ parameters.
+// __grid_constant__ parameters, as is Args (the producer indexes its tap table in place).
 //
 // Not done yet: persistent blocks or ping-pong consumers (one tile per block here, so a tile's
 // epilogue, the products' largest loss on an H100, overlaps neither the next tile's loads nor
@@ -43,6 +52,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 // Internal linkage: both libraries include this header, and a function-local static of an inline
 // template (the per-device attribute flags below) would otherwise be one symbol for the whole
@@ -55,6 +65,7 @@ constexpr int kBK = 64;         // K per stage: one 128-byte swizzle row of bf16
 constexpr int kThreads = 384;   // warpgroups 0, 1 consume; warpgroup 2 produces
 constexpr int kConsumerWarps = 8;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxTaps = 64;    // rows of the tap table
 
 template <int BN>
 struct Config {
@@ -68,12 +79,22 @@ struct Config {
 };
 
 struct Args {
-  int rows;  // rows of one batch entry of A and of the output
-  int cols;  // output columns (N)
-  int a_k;   // A's width: K of one tap, a multiple of 64
-  int taps;  // K = taps * a_k
-  int dil;   // row shift between taps
+  int rows;                // rows of one batch entry of A and of the output
+  int cols;                // output columns (N)
+  int a_k;                 // K of one tap: A's width rounded up to a multiple of 64
+  int taps;                // K = taps * a_k, 1 <= taps <= kMaxTaps
+  int tap_row[kMaxTaps];   // row shift of each tap
 };
+
+// An epilogue with store4() takes the rows kind (see the top of the file): for each piece of four
+// columns the core calls load4(batch, row, col), which returns Epi::In (what the piece reads from
+// device memory), for kBatch pieces, then store4(batch, row, col, z, in) for the same pieces.
+// Every load of a batch is issued before its first store: the compiler cannot tell the outputs
+// from the inputs, and would otherwise wait out each load's latency behind the last store.
+template <class E, class = void>
+struct IsRowwise : std::false_type {};
+template <class E>
+struct IsRowwise<E, std::void_t<decltype(&E::store4)>> : std::true_type {};
 
 // ---- device helpers -----------------------------------------------------------------------------
 
@@ -231,7 +252,7 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
 template <int BN, bool kPaired, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                const Args args, const Epi epi) {
+                const __grid_constant__ Args args, const Epi epi) {
   using Cfg = Config<BN>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -266,7 +287,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint8_t* sa = smem + stage * Cfg::kStageBytes;
         mbar_expect_tx(&full[stage], Cfg::kStageBytes);
         const int tap = kb / a_blocks;
-        const int row = m_tile * kBM + (tap - args.taps / 2) * args.dil;
+        const int row = m_tile * kBM + args.tap_row[tap];
         tma_load_3d(sa, &map_a, &full[stage], (kb - tap * a_blocks) * kBK, row, batch);
         tma_load_3d(sa + Cfg::kABytes, &map_b, &full[stage], kb * kBK, n_tile * BN, 0);
         if (++stage == Cfg::kStages) {
@@ -312,52 +333,98 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // ---- epilogue: accumulator element i of a thread is row 16 w + lane / 4 + 8 ((i / 2) % 2),
     // column 8 (i / 4) + 2 (lane % 4) + i % 2 of its warpgroup's 64 x BN tile. The functor's
-    // pairs are staged in shared memory (the ring, idle once both warpgroups are done with it),
-    // then each warpgroup writes its 64 rows out in 16-byte pieces, a warp to a row ----
-    using Out = typename Epi::Out;
-    using Pair = typename Epi::Pair;
-    constexpr int kOutCols = kPaired ? BN / 2 : BN;  // output columns of a tile
-    // rows padded by four pairs, so the pair writes of a warp (8 rows x 4 lanes) miss no bank twice
-    constexpr int kRowBytes = kOutCols * (int)sizeof(Out) + 4 * (int)sizeof(Pair);
-    constexpr int kChunks = kOutCols * (int)sizeof(Out) / 16;  // 16-byte pieces of a row
-    constexpr int kPerChunk = 16 / (int)sizeof(Out);
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are off the ring
-    uint8_t* tile = smem + wg * 64 * kRowBytes;
+    // pairs (or, for the rows kind, the accumulators) are staged in shared memory (the ring, idle
+    // once both warpgroups are done with it), then each warpgroup writes its 64 rows out,
+    // neighbouring threads on neighbouring columns ----
     const int lane = threadIdx.x & 31;
     const int r0 = ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // row in the warpgroup's 64
     const int row_base = m_tile * kBM + wg * 64;
-    const int col_base = n_tile * kOutCols;
     const int c0 = 2 * (lane & 3);
-    const int out_cols = kPaired ? args.cols / 2 : args.cols;
+    if constexpr (IsRowwise<Epi>::value) {
+      static_assert(!kPaired, "the rows kind takes a plain product");
+      // rows padded by 8 floats: a half warp's pair writes (4 rows x 4 lanes) miss no bank twice
+      constexpr int kRowFloats = BN + 8;
+      static_assert(kBM * kRowFloats * 4 <= Cfg::kStages * Cfg::kStageBytes, "staging");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are off the ring
+      float* tile = reinterpret_cast<float*>(smem) + wg * 64 * kRowFloats;
 #pragma unroll
-    for (int j = 0; j < kOutCols / 8; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 8 * h;
-        const int i = 4 * j + 2 * h;
-        const int col = col_base + 8 * j + c0;
-        if (row_base + r < args.rows && col < out_cols) {
-          Pair v;
-          if constexpr (kPaired) {
-            const int i2 = i + BN / 4;  // column c + BN / 2 of the tile
-            v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1], acc[i2], acc[i2 + 1]);
-          } else {
-            v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1]);
-          }
-          *reinterpret_cast<Pair*>(tile + r * kRowBytes + (8 * j + c0) * (int)sizeof(Out)) = v;
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h;
+          *reinterpret_cast<float2*>(tile + (r0 + 8 * h) * kRowFloats + 8 * j + c0) =
+              make_float2(acc[i], acc[i + 1]);
         }
       }
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-    const int t = threadIdx.x & 127;
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+      const int t = threadIdx.x & 127;
+      const int col_base = n_tile * BN;
+      constexpr int kQuads = BN / 4;             // pieces of a row
+      constexpr int kPieces = 64 * kQuads / 128;  // pieces a thread
+      constexpr int kBatch = Epi::kBatch < kPieces ? Epi::kBatch : kPieces;
+      static_assert(kPieces % kBatch == 0, "batches");
+#pragma unroll
+      for (int p0 = 0; p0 < kPieces; p0 += kBatch) {
+        typename Epi::In in[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int q = t + 128 * (p0 + j);
+          const int r = row_base + q / kQuads, c = col_base + (q % kQuads) * 4;
+          if (r < args.rows && c < args.cols) in[j] = epi.load4(batch, r, c);  // cols % 4 == 0
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int q = t + 128 * (p0 + j);
+          const int r = row_base + q / kQuads, c = col_base + (q % kQuads) * 4;
+          const float* z = tile + (q / kQuads) * kRowFloats + (q % kQuads) * 4;
+          if (r < args.rows && c < args.cols) {
+            epi.store4(batch, r, c, *reinterpret_cast<const float4*>(z), in[j]);
+          }
+        }
+      }
+    } else {
+      using Out = typename Epi::Out;
+      using Pair = typename Epi::Pair;
+      constexpr int kOutCols = kPaired ? BN / 2 : BN;  // output columns of a tile
+      // rows padded by four pairs: the pair writes of a warp (8 rows x 4 lanes) miss no bank twice
+      constexpr int kRowBytes = kOutCols * (int)sizeof(Out) + 4 * (int)sizeof(Pair);
+      constexpr int kChunks = kOutCols * (int)sizeof(Out) / 16;  // 16-byte pieces of a row
+      constexpr int kPerChunk = 16 / (int)sizeof(Out);
+      static_assert(kBM * kRowBytes <= Cfg::kStages * Cfg::kStageBytes, "staging");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both warpgroups are off the ring
+      uint8_t* tile = smem + wg * 64 * kRowBytes;
+      const int col_base = n_tile * kOutCols;
+      const int out_cols = kPaired ? args.cols / 2 : args.cols;
+#pragma unroll
+      for (int j = 0; j < kOutCols / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const int i = 4 * j + 2 * h;
+          const int col = col_base + 8 * j + c0;
+          if (row_base + r < args.rows && col < out_cols) {
+            Pair v;
+            if constexpr (kPaired) {
+              const int i2 = i + BN / 4;  // column c + BN / 2 of the tile
+              v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1], acc[i2], acc[i2 + 1]);
+            } else {
+              v = epi.value(batch, row_base + r, col, acc[i], acc[i + 1]);
+            }
+            *reinterpret_cast<Pair*>(tile + r * kRowBytes + (8 * j + c0) * (int)sizeof(Out)) = v;
+          }
+        }
+      }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+      const int t = threadIdx.x & 127;
 #pragma unroll 4
-    for (int q = t; q < 64 * kChunks; q += 128) {
-      const int r = q / kChunks;
-      const int ch = q % kChunks;
-      const int col = col_base + ch * kPerChunk;
-      if (row_base + r < args.rows && col + kPerChunk <= out_cols) {
-        *reinterpret_cast<uint4*>(epi.row(batch, row_base + r) + col) =
-            *reinterpret_cast<const uint4*>(tile + r * kRowBytes + ch * 16);
+      for (int q = t; q < 64 * kChunks; q += 128) {
+        const int r = q / kChunks;
+        const int ch = q % kChunks;
+        const int col = col_base + ch * kPerChunk;
+        if (row_base + r < args.rows && col + kPerChunk <= out_cols) {
+          *reinterpret_cast<uint4*>(epi.row(batch, row_base + r) + col) =
+              *reinterpret_cast<const uint4*>(tile + r * kRowBytes + ch * 16);
+        }
       }
     }
   }
@@ -391,10 +458,11 @@ inline cudaError_t launch(const void* map_a, const void* map_b, const Args& args
                           const Epi& epi, cudaStream_t stream) {
   const int m_tiles = (args.rows + kBM - 1) / kBM;
   if (args.rows < 1 || args.cols < 1 || args.a_k < kBK || args.a_k % kBK || args.taps < 1 ||
-      args.cols % 8 || batch < 1 || batch > 65535 || m_tiles > 65535 ||
+      args.taps > kMaxTaps || args.cols % 8 || batch < 1 || batch > 65535 || m_tiles > 65535 ||
       (kPaired && args.cols % BN)) {
     return cudaErrorInvalidValue;
   }
+  using Cfg = Config<BN>;
   auto kernel = gemm_kernel<BN, kPaired, Epi>;
   // the attribute belongs to a device: set it once for each
   static bool smem_set[kMaxDevices] = {};
@@ -402,13 +470,12 @@ inline cudaError_t launch(const void* map_a, const void* map_b, const Args& args
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device >= kMaxDevices || !smem_set[device]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Config<BN>::kSmem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
     if (e != cudaSuccess) return e;
     if (device < kMaxDevices) smem_set[device] = true;
   }
   const dim3 grid((args.cols + BN - 1) / BN, m_tiles, batch);
-  kernel<<<grid, kThreads, Config<BN>::kSmem, stream>>>(load_map(map_a), load_map(map_b), args,
-                                                         epi);
+  kernel<<<grid, kThreads, Cfg::kSmem, stream>>>(load_map(map_a), load_map(map_b), args, epi);
   return cudaGetLastError();
 }
 

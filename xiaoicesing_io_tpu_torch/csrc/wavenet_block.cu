@@ -90,14 +90,14 @@ extern "C" int wavenet_block_launch(const void* map_y, const void* map_wc, const
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const GateEpi gate{static_cast<const float*>(bc), static_cast<const __nv_bfloat16*>(cond),
                      static_cast<__nv_bfloat16*>(g), T, C};
-  const sm90::Args conv{T, 2 * C, C, 3, d};
+  const sm90::Args conv{T, 2 * C, C, 3, {-d, 0, d}};  // taps at t - d, t, t + d
   cudaError_t e = bn_gate == 256 ? sm90::launch<256, true>(map_y, map_wc, conv, B, gate, s)
                   : bn_gate == 128 ? sm90::launch<128, true>(map_y, map_wc, conv, B, gate, s)
                                    : cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   const sm90::StoreBiasBf16 store{static_cast<const float*>(bo), static_cast<__nv_bfloat16*>(out),
                                   B * T, 2 * C};
-  return (int)launch_plain(bn_out, map_g, map_wo, sm90::Args{B * T, 2 * C, C, 1, 0}, store, s);
+  return (int)launch_plain(bn_out, map_g, map_wo, sm90::Args{B * T, 2 * C, C, 1, {0}}, store, s);
 }
 
 // out [M, N] bf16 = A [M, K] @ B^T + bias, B K-major [N, K], through maps with box rows 128 (A)
@@ -106,6 +106,6 @@ extern "C" int sm90_gemm_bf16_launch(const void* map_a, const void* map_b, const
                                      void* out, int M, int N, int K, int bn, void* stream) {
   const sm90::StoreBiasBf16 store{static_cast<const float*>(bias),
                                   static_cast<__nv_bfloat16*>(out), M, N};
-  return (int)launch_plain(bn, map_a, map_b, sm90::Args{M, N, K, 1, 0}, store,
+  return (int)launch_plain(bn, map_a, map_b, sm90::Args{M, N, K, 1, {0}}, store,
                            reinterpret_cast<cudaStream_t>(stream));
 }

@@ -22,7 +22,10 @@ F*C, R]`` only for ``F.conv1d``.  ResBlock1 stages listed in
 ``pallas_stages`` run ``ops/cuda/hifigan_stage.py:fused_resblock_stage``
 (K2) on stacked folded taps; every other ResBlock1 unit runs
 ``ops/cuda/hifigan_resblock.py:resblock_unit`` (K6).  Both are their CUDA
-kernels on the card and their plain versions on the CPU.  ResBlock2 units,
+kernels on the card and their plain versions on the CPU; their weights are
+made once here, and each kernel keeps the K-major copies of the taps that
+are not all zero, built at its first launch, on those weight tensors
+(``ops/cuda/sm90.py:kept_on``).  ResBlock2 units,
 for which the JAX package has no kernel, are ``F.conv1d`` on either device.
 
 The weights come from the port's stock :class:`Generator` (the reference

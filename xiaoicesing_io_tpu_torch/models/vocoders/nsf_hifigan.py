@@ -15,7 +15,8 @@ card), casting the f32 weights per call.  With ResBlock1, stages 0 and 1 run
 their resblock groups through ``ops/cuda/hifigan_stage.py:fused_resblock_stage``
 (the CUDA kernel on the card, its plain version on the CPU), as the JAX
 vocoder sends them to its TPU kernel; :meth:`Generator.prepare_stages` makes
-their weights once.
+their weights once, and the kernel keeps the K-major copies of their taps
+that it builds at its first launch on those tensors (``sm90.kept_on``).
 """
 
 from __future__ import annotations

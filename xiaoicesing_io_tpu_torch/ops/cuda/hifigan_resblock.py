@@ -15,13 +15,15 @@ its leaky ReLU is rounded to ``x``'s dtype, and the residual is added in f32
 and rounded once.  With f32 ``x`` (CPU only) the unit is exact f32.
 
 On a CPU tensor :func:`resblock_unit` runs :func:`resblock_unit_plain`; on a
-CUDA tensor it launches ``csrc/hifigan_resblock.cu`` once, or raises.  The
-kernel takes bf16 ``x``, the taps of :func:`prepare_unit_weights`, a width
-``C`` that is a multiple of 16 up to :data:`MAX_WIDTH`, a first-conv reach
-``(k1 - 1) * d1`` up to :data:`MAX_CONV1_REACH` and a second-conv reach up
-to :data:`MAX_CONV2_REACH`.  The TPU kernel's ``tile`` and ``interpret`` are
-schedule parameters and are not ported.  The bound and the design are
-described in the CUDA source.
+CUDA tensor it launches ``csrc/hifigan_resblock.cu`` once (a leaky-ReLU pass
+and two tap convs on the Hopper GEMM core ``csrc/sm90_gemm.cuh``), or raises.
+The kernel takes bf16 ``x``, the taps of :func:`prepare_unit_weights`, a width
+``C`` that is a multiple of 16 up to :data:`MAX_WIDTH`, and any reach ``(k -
+1) * d`` with up to ``sm90.MAX_TAPS`` taps a conv that are not all zero.  The
+K-major copies of each conv's kept taps and their tensor maps are built at
+the first launch and kept on the tap tensor (``sm90.kept_on``).  The TPU
+kernel's ``tile`` and ``interpret`` are schedule parameters and are not
+ported.  The bound and the design are described in the CUDA source.
 """
 
 from __future__ import annotations
@@ -33,16 +35,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, sm90
 
 LRELU_SLOPE = 0.1
 MAX_WIDTH = 512        # the CUDA kernel takes C % 16 == 0, 16 <= C <= MAX_WIDTH
-MAX_CONV1_REACH = 64   # (k1 - 1) * d1 of the first conv
-MAX_CONV2_REACH = 16   # (k2 - 1) * d2 of the second conv
 
 launches = 0  # wrapper calls that launched the CUDA kernel
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_LIB = "hifigan_resblock"
+# one conv: map_w, kept, n_kept, d, pad_l
+_CONV = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 2 + _CONV + _CONV + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
+_maps = sm90.MapCache(_LIB)
 
 
 def _lrelu(x):
@@ -86,6 +91,12 @@ def resblock_unit_plain(x, w1, b1, w2, b2, d1: int = 1, pad1_l: Optional[int] = 
     return (h + z2).to(dt)
 
 
+def conv_operands(w: torch.Tensor) -> sm90.TapConv:
+    """The GEMM core's operands of one conv's ``[k, C, C]`` bf16 taps, built
+    at its first launch and kept on ``w``."""
+    return sm90.kept_on(w, lambda t: sm90.tap_conv(_LIB, t))
+
+
 def _launch(x, w1, b1, w2, b2, d1: int, p1: int, d2: int, p2: int) -> torch.Tensor:
     global launches
     if x.dtype != torch.bfloat16:
@@ -95,37 +106,32 @@ def _launch(x, w1, b1, w2, b2, d1: int, p1: int, d2: int, p2: int) -> torch.Tens
         raise ValueError(f"resblock_unit kernel takes C % 16 == 0 and 16 <= C <= {MAX_WIDTH}, "
                          f"got {L}")
     k1, k2 = w1.shape[0], w2.shape[0]
-    if (k1 - 1) * d1 > MAX_CONV1_REACH or (k2 - 1) * d2 > MAX_CONV2_REACH:
-        raise ValueError(f"resblock_unit kernel takes a reach (k - 1) * d <= {MAX_CONV1_REACH} "
-                         f"in the first conv and <= {MAX_CONV2_REACH} in the second, got "
-                         f"{(k1 - 1) * d1} and {(k2 - 1) * d2}")
-    if not (0 <= p1 <= (k1 - 1) * d1 and 0 <= p2 <= (k2 - 1) * d2):
-        raise ValueError(f"resblock_unit: pad_l must lie in [0, (k - 1) * d], got {p1}, {p2}")
+    sm90.check_tap_conv("resblock_unit", k1, d1, p1)
+    sm90.check_tap_conv("resblock_unit", k2, d2, p2)
     if not 1 <= B <= 65535:
         raise ValueError(f"resblock_unit kernel takes 1 <= B <= 65535, got {B}")
     for name, w, k in (("w1", w1, k1), ("w2", w2, k2)):
         if w.device != x.device or w.dtype != torch.bfloat16 or tuple(w.shape) != (k, L, L) \
-                or not w.is_contiguous() or w.data_ptr() % 16:
-            # cp.async copies the taps in 16-byte pieces
-            raise ValueError(f"resblock_unit: {name} must be a contiguous, 16-byte aligned bf16 "
-                             f"[{k}, {L}, {L}] tensor on {x.device} (see prepare_unit_weights)")
+                or not w.is_contiguous():
+            raise ValueError(f"resblock_unit: {name} must be a contiguous bf16 [{k}, {L}, {L}] "
+                             f"tensor on {x.device} (see prepare_unit_weights)")
     for name, b in (("b1", b1), ("b2", b2)):
         if b.device != x.device or b.dtype != torch.float32 or tuple(b.shape) != (L,) \
                 or not b.is_contiguous():
             raise ValueError(f"resblock_unit: {name} must be a contiguous f32 [{L}] tensor on "
                              f"{x.device} (see prepare_unit_weights)")
     x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("resblock_unit: x must be 16-byte aligned (vector loads)")
-    out = torch.empty_like(x)
-    lib = build.load("hifigan_resblock")
-    fn = lib.hifigan_resblock_unit_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    sm90.check_operand("resblock_unit", "x", x)
+    c1, c2 = conv_operands(w1), conv_operands(w2)
+    a, t2, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                    out.data_ptr(), B, T, L, k1, d1, p1, k2, d2, p2,
-                    build.stream_ptr(x.device))
+        map_a, map_t2 = _maps.get(a, sm90.BM), _maps.get(t2, sm90.BM)
+        fn = sm90.function(_LIB, "hifigan_resblock_unit_launch", _ARGTYPES)
+        status = fn(ctypes.addressof(map_a), ctypes.addressof(map_t2),
+                    ctypes.addressof(c1.map_w), c1.kept_c, len(c1.kept), d1, p1,
+                    ctypes.addressof(c2.map_w), c2.kept_c, len(c2.kept), d2, p2,
+                    x.data_ptr(), b1.data_ptr(), b2.data_ptr(), a.data_ptr(), t2.data_ptr(),
+                    out.data_ptr(), B, T, L, c1.bn, build.stream_ptr(x.device))
     build.check(status, "resblock_unit launch")
     launches += 1
     return out

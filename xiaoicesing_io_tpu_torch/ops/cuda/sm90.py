@@ -1,9 +1,10 @@
-"""Host side of the Hopper GEMM core (``csrc/sm90_gemm.cuh``) that K1 and K4 run on.
+"""Host side of the Hopper GEMM core (``csrc/sm90_gemm.cuh``) that K1, K2, K4
+and K6 run on.
 
 The core computes ``out[b, r, n] = epilogue(sum_k A'[b, r, k] * B[n, k])``
-with A read through a 3-D TMA tensor map ``[batch, rows, a_k]`` and B K-major
-``[N, K]``.  The arithmetic the kernels trust is planned here, in plain
-Python that the CPU tests reach:
+with A read through a 3-D TMA tensor map ``[batch, rows, width]`` and B
+K-major ``[N, K]``.  The arithmetic the kernels trust is planned here, in
+plain Python that the CPU tests reach:
 
 * :func:`k_major` and :func:`paired_k_major` build, once per set of weights,
   the K-major copies of the JAX layouts' ``[K, N]`` product weights; a paired
@@ -11,22 +12,29 @@ Python that the CPU tests reach:
   in tile ``p`` of 2P columns (P = :func:`pair_width`, 128 or 64), so that an
   epilogue holds both halves of a column (gate and filter, out and gate) in
   one thread.  :func:`unpair_k_major` undoes it.
-* :func:`tap_plan` is the producer's coordinate plan: which A columns and
-  which row shift each 64-wide K block loads (tap ``j`` of ``taps`` reads rows
-  shifted by ``(j - taps // 2) * dil``; TMA fills rows outside ``[0, rows)``
-  with zeros).
+* :func:`row_plan` is the producer's coordinate plan: which A columns and
+  which row shift each 64-wide K block loads, tap ``j`` at the row shift
+  ``tap_row[j]`` of the core's tap table (TMA fills rows outside ``[0,
+  rows)`` with zeros).  :func:`tap_plan` is K1's and K4's table (taps
+  centred, ``(j - taps // 2) * dil``); :func:`kept_taps` and
+  :func:`tap_rows` are a conv's for K2 and K6: its taps that are not all
+  zero, at ``j * d - pad_l``.  :func:`tap_k` is one tap's K (the width
+  rounded up to 64; TMA fills A's columns past the width with zeros) and
+  :func:`tap_k_major` the kept taps' K-major copy, zero past the width.
 * :func:`map_plan` is a tensor map's dims, byte strides and box;
   :func:`check_operand` raises on what TMA refuses (16-byte aligned base and
   strides).
 * :class:`Prepared` is a ``prepare_weights`` tuple that also keeps the
   K-major copies and their encoded tensor maps, built (and the weights
-  checked) at the first launch; :class:`MapCache` keeps the activations'
-  maps.
+  checked) at the first launch; :func:`kept_on` keeps such operands on one
+  weight tensor (K2's and K6's convs); :class:`MapCache` keeps the
+  activations' maps.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 from typing import Callable, List, Sequence, Tuple
 
 import torch
@@ -37,6 +45,8 @@ BM = 128     # rows of an output tile
 BK = 64      # K of a pipeline stage: one 128-byte swizzle row of bf16
 PAIR = 64    # columns of each half in a paired tile, at the least
 MAP_BYTES = 128  # sizeof(CUtensorMap)
+MAX_TAPS = 64    # rows of the core's tap table (sm90::kMaxTaps)
+MAX_REACH = 1 << 30  # (k - 1) * d of a tap conv: its row shifts are 32-bit
 
 
 def pair_width(half: int) -> int:
@@ -70,13 +80,55 @@ def unpair_k_major(wt: torch.Tensor, pair: int) -> torch.Tensor:
     return wt[torch.argsort(order)].t().contiguous()
 
 
-def tap_plan(a_k: int, taps: int, dil: int) -> List[Tuple[int, int]]:
-    """``(A column, row shift)`` of each 64-wide block of the ``K = taps *
-    a_k`` reduction, as the producer thread computes them."""
+def row_plan(a_k: int, tap_row: Sequence[int]) -> List[Tuple[int, int]]:
+    """``(A column, row shift)`` of each 64-wide block of the ``K =
+    len(tap_row) * a_k`` reduction, as the producer thread computes them."""
     if a_k % BK:
         raise ValueError(f"A's width must be a multiple of {BK}, got {a_k}")
     blocks = a_k // BK
-    return [((kb % blocks) * BK, (kb // blocks - taps // 2) * dil) for kb in range(taps * blocks)]
+    return [((kb % blocks) * BK, tap_row[kb // blocks]) for kb in range(len(tap_row) * blocks)]
+
+
+def tap_plan(a_k: int, taps: int, dil: int) -> List[Tuple[int, int]]:
+    """:func:`row_plan` of K1's and K4's centred taps: tap ``j`` at ``(j -
+    taps // 2) * dil``."""
+    return row_plan(a_k, [(j - taps // 2) * dil for j in range(taps)])
+
+
+def tap_k(width: int) -> int:
+    """One tap's K: ``width`` rounded up to a multiple of 64."""
+    return -(-width // BK) * BK
+
+
+def kept_taps(taps: torch.Tensor) -> List[int]:
+    """Indices of the taps of ``[k, C_in, C_out]`` that are not all zero (a
+    time-folded dilated conv has all-zero taps); tap 0 if every one is."""
+    nonzero = taps.reshape(taps.shape[0], -1).ne(0).any(dim=1)
+    return [j for j, keep in enumerate(nonzero.tolist()) if keep] or [0]
+
+
+def check_tap_conv(fn: str, k: int, d: int, pad_l: int) -> None:
+    """The geometry a tap conv takes: d >= 1, 0 <= pad_l <= (k - 1) * d, a
+    reach below :data:`MAX_REACH`."""
+    if d < 1 or not 0 <= pad_l <= (k - 1) * d or (k - 1) * d >= MAX_REACH:
+        raise ValueError(f"{fn}: a conv needs d >= 1, 0 <= pad_l <= (k - 1) * d < {MAX_REACH}, "
+                         f"got k={k}, d={d}, pad_l={pad_l}")
+
+
+def tap_rows(kept: Sequence[int], d: int, pad_l: int) -> List[int]:
+    """The core's tap table of a conv: kept tap ``j`` reads rows ``t + j * d
+    - pad_l``."""
+    return [j * d - pad_l for j in kept]
+
+
+def tap_k_major(taps: torch.Tensor, kept: Sequence[int]) -> torch.Tensor:
+    """``[k, C_in, C_out]`` taps -> K-major ``[C_out, len(kept) * tap_k(C_in)]``
+    of the kept taps: K index ``i * a_k + c`` is kept tap ``i``'s input
+    channel ``c``, zero for ``c >= C_in``."""
+    _, c_in, c_out = taps.shape
+    out = taps.new_zeros(c_out, len(kept), tap_k(c_in))
+    out[:, :, :c_in] = taps[list(kept)].permute(2, 0, 1)
+    return out.reshape(c_out, -1)
 
 
 def map_plan(t: torch.Tensor, box_rows: int):
@@ -157,3 +209,30 @@ class Prepared(tuple):
         if ops is None:
             ops = self.__dict__["_sm90"] = make(self)
         return ops
+
+
+def kept_on(t: torch.Tensor, make: Callable[[torch.Tensor], tuple]) -> tuple:
+    """``make(t)``, built at the first call and kept on the tensor ``t``; built
+    again only if ``t`` was written in place since (its version counter)."""
+    entry = t.__dict__.get("_sm90")
+    if entry is None or entry[0] != t._version:
+        entry = t.__dict__["_sm90"] = (t._version, make(t))
+    return entry[1]
+
+
+TapConv = namedtuple("TapConv", "device L kept kept_c wk map_w bn")
+
+
+def tap_conv(lib_name: str, taps: torch.Tensor) -> TapConv:
+    """A conv's operands on the core, from its bf16 ``[k, L, L]`` taps on the
+    card: the kept taps (a list and a C array), their K-major copy
+    (:func:`tap_k_major`) and its tensor map, box rows = the N tile."""
+    L = taps.shape[-1]
+    kept = kept_taps(taps)
+    if len(kept) > MAX_TAPS:
+        raise ValueError(f"the GEMM core takes at most {MAX_TAPS} taps that are not all zero, "
+                         f"got {len(kept)}")
+    wk = tap_k_major(taps, kept)
+    bn = tile_n(L)
+    return TapConv(taps.device, L, kept, (ctypes.c_int * len(kept))(*kept), wk,
+                   encode(lib_name, wk, bn), bn)
