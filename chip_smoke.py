@@ -5,7 +5,10 @@
 
 Phases, each printed on its own line:
   1. the card (name and power limit, from nvidia-smi);
-  2. the build of every CUDA kernel from ``xiaoicesing_io_tpu_torch/csrc``;
+  2. the build of every CUDA kernel from ``xiaoicesing_io_tpu_torch/csrc``,
+     then one line a compiled kernel from its ``-Xptxas -v`` log: its name
+     with its template arguments, registers, stack frame and spill bytes
+     (marked ``SPILLS`` where it spills);
   3. K1 ``lynx_conv_module`` against its plain PyTorch version at three edge
      shapes (T off the 128-row tile and the conv's 64-row block, k 31, 32
      and 3, dim 1024 and 256) and at the LYNXNet path's shape (B=4, T=2048,
@@ -91,9 +94,16 @@ second convs.  K6's ``ms``, ``plain_ms``, ``bound_ms`` and
 wrapper's default sends to K6.
 
 Phase 5c (after phase 5b, so ``--kernels-only`` covers it) holds K5
-``lynx_layer_fused``, K7 ``lynx_layer_fused_v3`` and K8 ``conv_tail``
-against their plain versions at B=4, T=2048, dim 1024, inner 2048, k 31 (K8
-on the PyTorch head's output for the same ``x``).
+``lynx_layer_fused`` and K7 ``lynx_layer_fused_v3`` (both on the GEMM core,
+K7's products on its persistent entry) against their plain version at four
+edge shapes (fewer tiles than SMs, a ragged last row tile, dim 1536 and dim
+2048 with inner 4096) and at B=4, T=2048, dim 1024, inner 2048, k 31; at the
+latter each one's time, ``gemm_library_ms`` (the layer's two products as
+cuBLAS bf16 products alone), host microseconds per call and the device
+split of its four launches (LayerNorm, SwiGLU product, conv, output
+product), then K7's two products beside K5's.  Then K8 ``conv_tail``
+against its plain version at the same shape
+(on the PyTorch head's output for the same ``x``).
 
 Phase 5b (after phase 5, so ``--kernels-only`` covers it) holds K3
 ``mel_spectrogram`` at the shipped ``MelConfig`` (44.1 kHz, n_fft = win 2048,
@@ -117,12 +127,13 @@ steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
 Since the redesign of K1 and K4 on the Hopper GEMM core, phases 3 and 5
 also cover the edge shapes above and print ``gemm_library_ms``, the host
 cost per call and the per-pass device split; since that of K2 and K6 on the
-same core, phases 4 and 5d do too.  The entries of K1, K2, K4 and K6 in the
-kernels line carry ``gemm_library_ms`` and ``host_us`` (K2's and K6's also
-``cudnn_bf16_ms``).  Phases 6 and 7
-print the device's busy share of ``synthesize`` and phase 9 that of the
-``module`` and ``v1`` sweep calls: the kernel time of one call in a
-device-only ``torch.profiler`` window over the host time of the same work.
+same core, phases 4 and 5d do too, and since that of K5 and K7, phase 5c.
+The entries of K1, K2, K4, K5, K6 and K7 in the kernels line carry
+``gemm_library_ms`` and ``host_us`` (K2's and K6's also ``cudnn_bf16_ms``).
+Phases 6 and 7 print the device's busy share of ``synthesize`` and phase 9
+that of the ``module``, ``v1``, ``v2`` and ``v3`` sweep calls: the kernel
+time of one call in a device-only ``torch.profiler`` window over the host
+time of the same work.
 
 Any failure raises: the script exits non-zero and prints no result.  The
 line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
@@ -674,39 +685,84 @@ def tail_bound(B, T, dim=1024, inner=2048, k=31):
     return bound_ms(nbytes, 2 * rows * inner * dim, 2 * rows * inner * k)
 
 
+# K5's and K7's edge shapes: fewer tiles than SMs, a ragged last row tile, dims above the cap
+# of 1024 that their WMMA versions had
+LAYER_EDGES = ((1, 37, 1024, 2048, 31), (4, 2049, 1024, 2048, 31), (2, 1000, 1536, 3072, 31),
+               (1, 2048, 2048, 4096, 31))
+# the launches of K5 and K7: LayerNorm, the SwiGLU product, the conv, the output product
+LAYER_PARTS = {"layer norm": ("layer_norm_kernel",), "SwiGLU product": ("SwigluEpi",),
+               "conv": ("dwconv_prelu",), "output product": ("LayerOut",)}
+
+
+def layer_inputs(B: int, T: int, dim: int = 1024, inner: int = 2048, k: int = 31, seed: int = 0):
+    import torch
+
+    x, params = k1_inputs(B, T, dim, inner, k, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cond = torch.randn(B, T, dim, generator=g, device="cuda").to(torch.bfloat16)
+    step = torch.randn(B, dim, generator=g, device="cuda").to(torch.bfloat16).float()
+    return x, cond, step, params
+
+
 def check_variants(reps: int = 10) -> dict:
-    """K5, K7 and K8 against their plain versions at the sweep's shape (B=4,
-    T=2048, dim 1024, inner 2048, k 31); K8 on the head's output for x."""
+    """K5 and K7 against their plain version at their edge shapes and at the
+    sweep's shape (B=4, T=2048, dim 1024, inner 2048, k 31), where each is
+    timed with its cuBLAS products, host cost and per-pass split; K8 on the
+    head's output for the same x."""
     import torch
 
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
 
+    entries = (("K5", "lynx_layer_fused", K5.lynx_layer_fused),
+               ("K7", "lynx_layer_fused_v3", K5.lynx_layer_fused_v3))
+    errs = {"K5": [], "K7": []}
+    for B, T, dim, inner, k in LAYER_EDGES:
+        x, cond, step, params = layer_inputs(B, T, dim, inner, k, seed=T + dim)
+        weights = K5.prepare_layer_weights(*params)
+        ref = K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k)
+        for key, name, fn in entries:
+            got = fn(x, cond, step, weights, kernel_size=k)
+            torch.cuda.synchronize()
+            errs[key].append(compare(f"{key} {name} [B={B},T={T},dim={dim},inner={inner},k={k}]",
+                                     got, ref))
+        del x, cond, weights, ref, got
     B, T, k = B_TIME, T_TIME, 31
-    x, params = k1_inputs(B, T)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    cond = torch.randn(B, T, x.shape[-1], generator=g, device="cuda").to(torch.bfloat16)
-    step = torch.randn(B, x.shape[-1], generator=g, device="cuda").to(torch.bfloat16).float()
+    x, cond, step, params = layer_inputs(B, T)
     weights = K5.prepare_layer_weights(*params)
     shape = "[B=4,T=2048,dim=1024,inner=2048,k=31]"
     out = {}
     ref = K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k)
-    for key, name, fn in (("K5", "lynx_layer_fused", K5.lynx_layer_fused),
-                          ("K7", "lynx_layer_fused_v3", K5.lynx_layer_fused_v3)):
+    for key, name, fn in entries:
         got = fn(x, cond, step, weights, kernel_size=k)
         torch.cuda.synchronize()
-        err = compare(f"{key} {name} {shape}", got, ref)
+        errs[key].append(compare(f"{key} {name} {shape}", got, ref))
         del got
         ms = cuda_ms(lambda: fn(x, cond, step, weights, kernel_size=k), reps)
-        out[key] = {"max_abs_err": err, "ms": ms}
+        out[key] = {"max_abs_err": max(errs[key]), "ms": ms}
     del ref
     plain_ms = cuda_ms(lambda: K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k),
                        3)
+    # the GEMM core's yardstick: the layer's two products as cuBLAS bf16 products
+    xn = x.reshape(B * T, -1)
+    act = torch.zeros(B * T, weights[7].shape[0], dtype=torch.bfloat16, device="cuda")
+    gemm_ms = cuda_ms(lambda: (torch.matmul(xn, weights[2]), torch.matmul(act, weights[7])), reps)
     bms, by = layer_bound(B, T)
-    for key in ("K5", "K7"):
-        out[key].update(plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        log(f"[{key}] ms={out[key]['ms']:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-            f"share_of_bound={bms / out[key]['ms']:.3f}")
+    splits = {}
+    for key, name, fn in entries:
+        call = (lambda fn=fn: fn(x, cond, step, weights, kernel_size=k))
+        us = host_us(call)
+        splits[key] = labelled_split(call, LAYER_PARTS)
+        out[key].update(plain_ms=plain_ms, bound_ms=bms, bound_by=by, gemm_library_ms=gemm_ms,
+                        host_us=us)
+        log(f"[{key}] ms={out[key]['ms']:.4f} plain_ms={plain_ms:.4f} "
+            f"gemm_library_ms={gemm_ms:.4f} bound_ms={bms:.4f} ({by}) "
+            f"share_of_bound={bms / out[key]['ms']:.3f} host_us_per_call={us:.1f}")
+        log(f"[{key} split] {split_text(splits[key])}")
+    if splits["K5"] is not None and splits["K7"] is not None:
+        log("[K7 vs K5 products] " + "; ".join(
+            f"{part}: K5 {splits['K5'][part]:.1f} us, K7 {splits['K7'][part]:.1f} us"
+            for part in ("SwiGLU product", "output product")))
 
     act = K8.conv_head(x, *weights[:4])
     tail = weights[4:]
@@ -936,7 +992,7 @@ def run_sampler_sweep(name_limit: str, reps: int = 2) -> dict:
     log(f"[timing lynx_variants] card={name_limit} B={B_TIME} T={T_TIME} steps={SWEEP_STEPS} "
         f"(mean of {reps}): " + " ".join(f"{m}_ms_per_step={t['ms_per_step']:.4f}"
                                           for m, t in times.items()))
-    for mode in ("module", "v1"):
+    for mode in ("module", "v1", "v2", "v3"):
         busy = device_busy_ms(lambda: sweep.run(mode)) / SWEEP_STEPS
         log(f"[busy lynx_variants] {mode}: device busy {busy:.4f} ms per step of "
             f"{times[mode]['ms_per_step']:.4f} (share {busy / times[mode]['ms_per_step']:.3f})")
@@ -1435,8 +1491,13 @@ def main(argv) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in seconds.items()))
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "error" in line.lower():
                 log(f"[build:{name}] {line.strip()}")
+        for u in build.resource_usage(name):  # one line a kernel, marked where it spills
+            spills = "SPILLS " if u["spill_stores"] or u["spill_loads"] else ""
+            log(f"[build:{name}] {spills}{u['kernel']}: registers {u['registers']}, stack frame "
+                f"{u['stack']} B, spill stores {u['spill_stores']} B, spill loads "
+                f"{u['spill_loads']} B")
 
     k1 = check_k1()
     k2 = check_k2()

@@ -134,6 +134,36 @@ def test_gemm_core_matches_matmul(cuda, M, N, K, bn):
     assert ((got.float() - ref).abs() <= 1e-2 * ref.abs() + 1e-2).all()
 
 
+@pytest.mark.parametrize("rows_kind", [False, True])
+@pytest.mark.parametrize("M,N,K,bn", [
+    (8192, 1024, 2048, 256),   # the layer's output product: 256 tiles, 1.9 waves of 132 blocks
+    (1000, 512, 256, 256),     # ragged M, 16 tiles: fewer tiles than SMs
+    (37, 192, 64, 128),        # one partial row tile (one warpgroup's rows), a guarded N tile
+    (129, 384, 192, 128),      # one row past a tile
+    (8003, 1000, 512, 128),    # both ragged: 63 x 8 = 504 tiles, not a multiple of 132
+])
+def test_gemm_core_persistent_matches_matmul(cuda, M, N, K, bn, rows_kind):
+    """The core's persistent entry (``sm90::launch_persistent``: blocks walking
+    the tiles, the ring carried across them, TMA stores from a swizzled
+    buffer) against ``torch.matmul`` in f32, with a pairs epilogue (``+
+    bias``) and a rows epilogue (``+ bias + res``, a plain residual load)."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer
+
+    g = torch.Generator(device=cuda).manual_seed(M + N + K + bn)
+    a = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn(N, K, generator=g, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(N, generator=g, device=cuda)
+    res = torch.randn(M, N, generator=g, device=cuda).to(torch.bfloat16) if rows_kind else None
+    got = lynx_layer.gemm_persistent_bf16(a, b, bias, res, bn=bn)
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float().t() + bias
+    if rows_kind:
+        ref = ref + res.float()
+    assert got.shape == (M, N)
+    _rel_close(got, ref)
+    assert ((got.float() - ref).abs() <= 1e-2 * ref.abs() + 1e-2).all()
+
+
 def _stage(rng, L, kernels, dils, device, F=1):
     """A stage of width L: raw dilated taps (F = 1), or the taps of width
     L / F folded by F as the vocoder folds them (asymmetric pads, all-zero
@@ -358,10 +388,15 @@ LAYER_SHAPES = [
     (1, 300, 256, 512, 31),     # a partial last row tile
     (2, 1000, 256, 512, 31),    # two sequences: no halo may cross between them
     (3, 77, 128, 256, 7),       # short kernel
-    (2, 150, 192, 384, 31),     # dim % 128 != 0: warps with one and two column fragments
-    (1, 5, 64, 128, 31),        # fewer rows than the halo, the narrowest width
-    (2, 4100, 256, 512, 31),    # K7: several tiles per work item, two blocks an SM
+    (2, 150, 192, 384, 31),     # dim % 128 != 0: 128-column output tiles, a guarded last one
+    (1, 5, 64, 128, 31),        # fewer rows than the halo, the narrowest width: one tile
+    (2, 4100, 256, 512, 31),    # more tiles than SMs, a ragged last row tile
     (3, 2500, 1024, 2048, 31),  # the main-path width, T off any bucket
+]
+# K5 and K7 only (K8 keeps its cap at 1024): widths above the cap K5 and K7 had before the GEMM core
+WIDE_LAYER_SHAPES = [
+    (2, 700, 1536, 3072, 31),
+    (1, 1000, 2048, 4096, 31),
 ]
 
 
@@ -371,7 +406,7 @@ def _bf16(rng, shape, device, std=1.0):
 
 
 @pytest.mark.parametrize("entry", ["v2", "v3"])
-@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES)
+@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES + WIDE_LAYER_SHAPES)
 def test_lynx_layer_kernels_match_plain(cuda, entry, B, T, dim, inner, k):
     rng = np.random.default_rng(6)
     x, cond = _bf16(rng, (B, T, dim), cuda), _bf16(rng, (B, T, dim), cuda)
@@ -417,12 +452,18 @@ def test_lynx_variants_raise_instead_of_falling_back(cuda):
         # weights that were not prepared
         with pytest.raises(ValueError, match="prepare_layer_weights"):
             fn(x, cond, step, params)
-        # widths the kernels do not take: dim % 64, dim > 1024, k > 33
-        for dim, k in ((96, 31), (1088, 31), (128, 35)):
+        # widths the kernels do not take: dim % 64, inner % 64, k > 33
+        for dim, inner, k in ((96, 192, 31), (128, 96, 31), (128, 256, 35)):
             xd, cd = _bf16(rng, (1, 16, dim), cuda), _bf16(rng, (1, 16, dim), cuda)
-            wd = K5.prepare_layer_weights(*_k1_params(rng, dim, 2 * dim, k, cuda))
+            wd = K5.prepare_layer_weights(*_k1_params(rng, dim, inner, k, cuda))
             with pytest.raises(ValueError, match="dim % 64"):
                 fn(xd, cd, torch.zeros(1, dim, device=cuda), wd, kernel_size=k)
+        # x and cond_proj are read with vector loads: contiguous and 16-byte aligned
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(_bf16(rng, (1, 128, 16), cuda).transpose(1, 2), cond, step, weights)
+        shifted = torch.zeros(16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+        with pytest.raises(ValueError, match="aligned"):
+            fn(x, shifted.view(1, 16, 128), step, weights)
     tail = weights[4:]
     with pytest.raises(TypeError, match="bf16"):
         K8.conv_tail(torch.zeros(1, 16, 256, device=cuda), tail)

@@ -1,5 +1,5 @@
-"""The host-side plan of the Hopper GEMM core (``ops/cuda/sm90.py``) that K1
-and K4 trust, on the CPU.
+"""The host-side plan of the Hopper GEMM core (``ops/cuda/sm90.py``) that K1,
+K2, K4, K5, K6 and K7 trust, on the CPU.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 What they take from the host is checked here: the K-major and column-paired
@@ -9,7 +9,9 @@ The numpy emulations walk the kernels' tiles as the device does -- 128-row
 output tiles, 64-wide K blocks loaded at the planned coordinates with zero
 fill outside ``[0, rows)``, the paired epilogue, the depthwise conv's staged
 tile and zero-padded taps -- and must reproduce the plain versions in f32
-(atol 1e-4: the same f32 math in another summation order).
+(atol 1e-4: the same f32 math in another summation order).  The persistent
+entry K7 runs on is modelled too: its tiles, shared memory, epilogue layout
+and the ``mbarrier`` ring carried across tiles.
 """
 
 import numpy as np
@@ -136,8 +138,9 @@ def test_lynx_weight_copies_undo_to_jax_layout(dim, inner):
 
 
 def test_prepared_weights_stay_the_shared_tuple():
-    """K5, K7 and K8 read ``prepare_weights``' tuple as it is; K1's own
-    operands are built once and kept beside it."""
+    """K8 reads ``prepare_weights``' tuple as it is; the GEMM core's operands
+    of K1, K5 and K7 (``lynx_conv.kernel_operands``) are built once and kept
+    beside it."""
     params = _k1_params(np.random.default_rng(1), 64, 128, 31)
     weights = K1.prepare_weights(*params)
     assert isinstance(weights, tuple) and len(weights) == 9
@@ -153,6 +156,26 @@ def test_prepared_weights_stay_the_shared_tuple():
     assert len(calls) == 1 and calls[0] is weights
     again = K1.prepare_weights(*params)
     assert all(torch.equal(a, b) for a, b in zip(weights, again))
+
+
+def test_prepared_operands_are_kept_per_maker():
+    """Each ``make`` gets its own operands, built once: a second kernel's
+    maker never receives the first one's."""
+    weights = K1.prepare_weights(*_k1_params(np.random.default_rng(2), 64, 128, 31))
+    calls = []
+
+    def make_a(w):
+        calls.append("a")
+        return ("a",)
+
+    def make_b(w):
+        calls.append("b")
+        return ("b",)
+
+    assert weights.operands(make_a) == ("a",)
+    assert weights.operands(make_b) == ("b",)
+    assert weights.operands(make_a) == ("a",) and weights.operands(make_b) == ("b",)
+    assert calls == ["a", "b"]
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +210,41 @@ def test_tap_plan(a_k, taps, dil):
         assert {s for _, s in plan} == {-dil, 0, dil}
 
 
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13fooEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13fooEv
+    176 bytes stack frame, 460 bytes spill stores, 420 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 176 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+
+
+def test_build_log_names_each_kernels_spills():
+    """``build.parse_ptxas`` ties each stack frame and register count of a
+    ``-Xptxas -v`` log to its function, so that a spill names the
+    instantiation it belongs to."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import build
+
+    usage = build.parse_ptxas(_PTXAS_LOG)
+    assert usage == [
+        {"function": "_ZN12_GLOBAL__N_13fooEv", "registers": 168, "stack": 176,
+         "spill_stores": 460, "spill_loads": 420},
+        {"function": "_Z3barv", "registers": 40, "stack": 0, "spill_stores": 0,
+         "spill_loads": 0},
+    ]
+    # demangled without the anonymous namespace and the signature where a demangler is
+    # found, else as given; a kernel keeps its template arguments
+    assert build.demangle([u["function"] for u in usage]) in (
+        ["foo", "bar"], ["_ZN12_GLOBAL__N_13fooEv", "_Z3barv"])
+    assert build._kernel_name("void sm90::gemm_kernel<(int)256, (bool)1, Epi>(CUtensorMap_st, "
+                              "T3)") == "sm90::gemm_kernel<(int)256, (bool)1, Epi>"
+    assert build.parse_ptxas("") == []
+
+
 def test_check_operand_raises_on_what_tma_refuses():
     ok = torch.zeros(16, 128, dtype=torch.bfloat16)
     sm90.check_operand("f", "x", ok)
@@ -197,6 +255,9 @@ def test_check_operand_raises_on_what_tma_refuses():
                            .view(16, 128))
     with pytest.raises(ValueError, match="aligned"):
         sm90.check_operand("f", "x", torch.zeros(16, 4, dtype=torch.bfloat16))  # 8-byte rows
+    # the same rule for an operand that a kernel reads with vector loads, named as such
+    with pytest.raises(ValueError, match=r"contiguous \(vector loads\)"):
+        sm90.check_operand("f", "x", ok.t(), reader="vector loads")
 
 
 @pytest.mark.parametrize("n,bn", [(1024, 256), (384, 128), (192, 128), (4096, 256)])
@@ -673,3 +734,368 @@ def test_folded_convs_are_block_sparse():
                     shares.append((np.abs(blocks).reshape(W2.shape[0], F, F, -1).max(-1) > 0)
                                   .mean())
     assert min(shares) == 0.125 and round(max(shares), 3) == 0.786
+
+
+# ---------------------------------------------------------------------------
+# K5 and K7: numpy walks of the four launches against the plain version
+# ---------------------------------------------------------------------------
+
+def _k5_walk(x, cond, step, weights, k, dtype):
+    """K5's (and K7's) launches (``csrc/lynx_layer.cu``): the LayerNorm of f32
+    ``h = bf16(x + cond) + step[b]`` (``h`` never rounded), the paired
+    SwiGLU tiles into f32 ``u``, the depthwise conv into ``act``, then the
+    output product's tiles with the rows epilogue: four columns of a row at a
+    time, ``(acc + b2) + res``, ``res`` recomputed from ``x`` and ``cond``."""
+    rnd = _rounding(dtype)
+    B, T, dim = x.shape
+    ln_scale, ln_bias, _, b_in, dw, dw_bias, alpha, _, b2 = (t.double().numpy() for t in weights)
+    win_t, w2_t = (t.double().numpy() for t in K1.k_major_weights(weights))
+    inner = w2_t.shape[1]
+    rows = B * T
+    h = (rnd(x + cond) + step[:, None, :]).reshape(rows, dim)
+    mean = h.mean(-1, keepdims=True)
+    var = ((h - mean) ** 2).mean(-1, keepdims=True)
+    xn = rnd((h - mean) / np.sqrt(var + 1e-5) * ln_scale + ln_bias)
+    u = np.zeros((rows, inner))
+    plan = sm90.tap_plan(dim, 1, 0)
+    P = sm90.pair_width(inner)
+    for m0 in range(0, rows, sm90.BM):
+        r = np.arange(m0, min(m0 + sm90.BM, rows))
+        for p in range(inner // P):
+            acc = _gemm_tile(xn, win_t, m0, 2 * P * p, 2 * P, plan)[:len(r)]
+            j = P * p + np.arange(P)
+            gate = acc[:, P:] + b_in[inner + j]
+            u[r[:, None], j] = (acc[:, :P] + b_in[j]) * (gate * _sigmoid(gate))
+    act = rnd(_dwconv_emulated(u.reshape(B, T, inner), dw, dw_bias, alpha, k)).reshape(rows, inner)
+    xr, cr = x.reshape(rows, dim), cond.reshape(rows, dim)
+    out = np.full((rows, dim), np.nan)
+    bn = sm90.tile_n(dim)
+    tail = sm90.tap_plan(inner, 1, 0)
+    for m0 in range(0, rows, sm90.BM):
+        for n0 in range(0, dim, bn):
+            acc = _gemm_tile(act, w2_t, m0, n0, bn, tail)
+            for rr in range(sm90.BM):
+                for q in range(0, bn, 4):
+                    r, c = m0 + rr, n0 + q
+                    if r < rows and c < dim:  # the core's piece guard (dim % 4 == 0)
+                        res = rnd(xr[r, c:c + 4] + cr[r, c:c + 4])  # load4
+                        out[r, c:c + 4] = rnd((acc[rr, q:q + 4] + b2[c:c + 4]) + res)
+    assert not np.isnan(out).any()
+    return out.reshape(B, T, dim)
+
+
+@pytest.mark.parametrize("B,T,dim,inner,k,dtype", [
+    (2, 100, 64, 128, 31, torch.float32),    # two sequences: the conv's halo must not cross
+    (1, 150, 192, 384, 7, torch.float32),    # dim % 128 != 0: a guarded 128-column out tile
+    (2, 37, 128, 64, 32, torch.float32),     # an even kernel, 128-column paired tiles
+    (1, 170, 64, 192, 33, torch.float32),    # the widest kernel, two conv row blocks
+    (2, 130, 128, 256, 31, torch.bfloat16),  # the card's rounding points: xn, act, res, out
+    (1, 140, 256, 512, 31, torch.bfloat16),  # 256-column out tiles, a ragged row tile
+])
+def test_k5_launches_reproduce_plain(B, T, dim, inner, k, dtype):
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
+
+    rng = np.random.default_rng(dim + inner + k)
+    params = _k1_params(rng, dim, inner, k)
+    x, cond = (torch.tensor(rng.standard_normal((B, T, dim)), dtype=torch.float32).to(dtype)
+               for _ in range(2))
+    step = torch.tensor(rng.standard_normal((B, dim)), dtype=torch.float32)
+    weights = K5.prepare_layer_weights(*params, product_dtype=dtype)
+    ref = K5.lynx_layer_fused_plain(x, cond, step, *weights, kernel_size=k).double().numpy()
+    got = _k5_walk(x.double().numpy(), cond.double().numpy(), step.double().numpy(), weights, k,
+                   dtype)
+    res = (x.double() + cond.double()).numpy()
+    assert np.abs(ref - res).max() > 0.05  # the conv module adds something
+    _close(got, ref, dtype)
+
+
+def test_k5_layer_norm_takes_unrounded_h():
+    """K1's LayerNorm pass reads a bf16 input; K5's forms f32 h = bf16(x +
+    cond) + step and must not round it: with a step that bf16 cannot hold
+    beside res, rounding h moves xn by far more than an f32 ulp."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 4, 64)).astype(np.float32)
+    res = torch.tensor(x).to(torch.bfloat16).double().numpy()[0]
+    step = np.full(64, 1e-3) * rng.standard_normal(64)  # far below res's bf16 ulp
+    h = res + step
+    h_rounded = torch.tensor(h).to(torch.bfloat16).double().numpy()
+
+    def norm(v):
+        return (v - v.mean(-1, keepdims=True)) / np.sqrt(v.var(-1, keepdims=True) + 1e-5)
+
+    assert np.abs(norm(h) - norm(h_rounded)).max() > 1e-4
+    assert np.abs(norm(h) - norm(res)).max() > 1e-4  # and the step is not lost
+
+
+def test_k5_k7_width_checks_take_k1s_widths():
+    """The cap of 1024 that the WMMA versions had is gone: K5 and K7 take what K1
+    takes, and name themselves when they refuse."""
+    for dim, inner in ((1536, 3072), (2048, 4096), (64, 64)):
+        K1.check_widths(dim, inner, 31, "lynx_layer_fused")
+    with pytest.raises(ValueError, match="lynx_layer_fused_v3 kernel needs dim % 64"):
+        K1.check_widths(1056 + 8, 2048, 31, "lynx_layer_fused_v3")
+
+
+# ---------------------------------------------------------------------------
+# the persistent entry (K7's products): its tiles, shared memory, epilogue layout and ring
+# ---------------------------------------------------------------------------
+
+PERSISTENT_SHAPES = [  # (rows, cols, bn, batch): the products' plain or paired columns
+    (8192, 4096, 256, 1),   # K7's SwiGLU product at the sweep's shape: 1024 tiles, 7.8 waves
+    (8192, 1024, 256, 1),   # K7's output product: 256 tiles, 1.9 waves
+    (8196, 1024, 256, 1),   # a ragged last row tile
+    (37, 2048, 256, 1),     # fewer tiles than SMs
+    (8003, 1000, 128, 1),   # 504 tiles, not a multiple of 132
+    (300, 384, 128, 3),     # three batch entries
+]
+
+
+@pytest.mark.parametrize("rows,cols,bn,batch", PERSISTENT_SHAPES)
+def test_persistent_tiles_visit_every_tile_once(rows, cols, bn, batch):
+    grid, plan = sm90.persistent_tiles(rows, cols, bn, batch)
+    n_tiles, m_tiles = -(-cols // bn), -(-rows // sm90.BM)
+    tiles = n_tiles * m_tiles * batch
+    assert grid == min(tiles, sm90.SMS) and len(plan) == grid
+    visited = [t for block in plan for t in block]
+    assert len(visited) == tiles
+    assert set(visited) == {(b, m, n) for b in range(batch) for m in range(m_tiles)
+                            for n in range(n_tiles)}
+    # blocks' loads differ by at most one tile; N fastest, so neighbouring blocks share A's rows
+    assert max(map(len, plan)) - min(map(len, plan)) <= 1
+    if grid > 1:
+        assert plan[0][0] == (0, 0, 0) and plan[1][0] == (0, 1 // n_tiles, 1 % n_tiles)
+
+
+@pytest.mark.parametrize("bn,paired,out_bytes,stages", [
+    (256, True, 4, 4),    # K7's SwiGLU product, f32 u: half of a warpgroup's 32 KB, 4 stages
+    (256, False, 2, 4),   # K7's output product, bf16
+    (256, True, 2, 4),    # a paired bf16 output: one box a round
+    (256, False, 4, 3),   # a plain f32 output: 32 KB a warpgroup's round leaves 3 stages
+    (128, True, 4, 5),    # 128-column tiles: 5 stages, the most the ring takes
+    (128, False, 2, 5),
+    (128, False, 4, 5),
+])
+def test_persistent_shared_memory_fits(bn, paired, out_bytes, stages):
+    got, buf, smem = sm90.persistent_config(bn, paired, out_bytes)
+    out_cols = bn // 2 if paired else bn
+    assert got == stages
+    # a warpgroup's 64 rows of one round: half its columns
+    assert buf == 64 * out_cols * out_bytes // sm90.PERSISTENT_ROUNDS
+    assert smem <= sm90.SMEM_LIMIT
+    # a stage more would not fit beside the buffers, unless the ring is at its cap of 5
+    stage = (sm90.BM + bn) * sm90.BK * 2
+    assert stages == 5 or smem + stage > sm90.SMEM_LIMIT
+
+
+def test_persistent_config_refuses_a_round_of_partial_boxes():
+    """A paired bf16 output at BN 128 has 64 bytes a row in each round: half a
+    store box, which the kernel's static_assert refuses too."""
+    with pytest.raises(ValueError, match="whole boxes"):
+        sm90.persistent_config(128, True, 2)
+
+
+def test_store_map_plan_boxes():
+    u = torch.zeros(8192, 2048)
+    out = torch.zeros(4, 2048, 1024, dtype=torch.bfloat16)
+    assert sm90.store_map_plan(u) == ((2048, 8192, 1), (8192, 8192 * 8192), (32, 64, 1))
+    assert sm90.store_map_plan(out) == ((1024, 2048, 4), (2048, 2048 * 2048), (64, 64, 1))
+
+
+def _swizzled(row, byte):
+    """``sm90::swizzled``: a round's (row, byte) in a warpgroup's buffer, boxes of
+    64 rows x 128 bytes in TMA's 128-byte swizzle."""
+    return (byte // 128) * 64 * 128 + row * 128 + (((byte % 128) // 16) ^ (row % 8)) * 16 \
+        + byte % 16
+
+
+def _acc_position(t, i):
+    """(row, column) in a warpgroup's 64 x BN tile of accumulator element i of
+    its thread t (wgmma's layout, as the core's comments give it)."""
+    lane = t % 32
+    return 16 * (t // 32) + lane // 4 + 8 * ((i // 2) % 2), 8 * (i // 4) + 2 * (lane % 4) + i % 2
+
+
+@pytest.mark.parametrize("bn,rnd", [(256, 0), (256, 1), (128, 0), (128, 1)])
+def test_persistent_rows_shuffle_gives_four_columns_of_a_row(bn, rnd):
+    """The rows kind's one shuffle (lanes l and l ^ 1 swap a pair): in
+    epilogue round ``rnd`` each thread ends with four adjacent columns of one
+    row for each of the round's j, a warpgroup's pieces cover the round's
+    half of its 64 x BN block exactly once, and their places in the round's
+    buffer (bf16 outputs) cover it exactly once too."""
+    kj = bn // 8 // sm90.PERSISTENT_ROUNDS
+    covered = np.zeros((64, bn), int)
+    placed = np.zeros(64 * bn // sm90.PERSISTENT_ROUNDS * 2, int)
+    for t in range(128):
+        lane, odd = t % 32, t % 2
+        partner = t ^ 1
+        for jj in range(kj):
+            j = rnd * kj + jj
+            mine = [_acc_position(t, 4 * j + e) for e in range(4)]
+            theirs = [_acc_position(partner, 4 * j + e) for e in range(4)]
+            send = theirs[0:2] if partner % 2 else theirs[2:4]  # what the partner sends
+            z = send + mine[2:4] if odd else mine[0:2] + send
+            rr = 16 * (t // 32) + lane // 4 + 8 * odd
+            c = 8 * j + 4 * ((lane % 4) // 2)
+            assert z == [(rr, c + e) for e in range(4)]
+            covered[rr, c:c + 4] += 1
+            start = _swizzled(rr, (8 * jj + 4 * ((lane % 4) // 2)) * 2)
+            placed[start:start + 8] += 1
+    half = bn // sm90.PERSISTENT_ROUNDS
+    assert (covered[:, rnd * half:(rnd + 1) * half] == 1).all()
+    assert covered.sum() == 64 * half
+    assert (placed == 1).all()
+
+
+@pytest.mark.parametrize("out_bytes,rows_kind", [(4, False), (2, False), (2, True)])
+def test_persistent_epilogue_writes_whole_wavefronts(out_bytes, rows_kind):
+    """The swizzled buffer takes a warp's epilogue writes in the fewest
+    128-byte wavefronts (pairs: 8 rows x 4 lanes; rows kind: 16 rows x 2
+    pieces), and a round's bytes map one to one onto the buffer."""
+    chunk = 128 * out_bytes // 1  # 128 output columns of a round
+    seen = {_swizzled(r, b) for r in range(64) for b in range(0, chunk)}
+    assert len(seen) == 64 * chunk and max(seen) < 64 * chunk
+    for warp in range(4):
+        for j in range(chunk // out_bytes // 8):
+            banks = {}
+            for lane in range(32):
+                if rows_kind:
+                    row = 16 * warp + lane // 4 + 8 * (lane % 2)
+                    col, width = 8 * j + 4 * ((lane % 4) // 2), 4 * out_bytes
+                else:
+                    row = 16 * warp + lane // 4
+                    col, width = 8 * j + 2 * (lane % 4), 2 * out_bytes
+                start = _swizzled(row, col * out_bytes)
+                for b in range(start, start + width, 4):
+                    banks.setdefault(b // 4 % 32, set()).add(b // 128)
+            requested = 32 * width
+            assert max(len(v) for v in banks.values()) == max(1, requested // 128)
+
+
+class _Barrier:
+    """An mbarrier: a phase completes when ``count`` arrivals came;
+    ``try_wait.parity(p)`` passes once the phase of parity ``p`` completed."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.phase = count, count, 0
+
+    def arrive(self):
+        self.pending -= 1
+        assert self.pending >= 0
+        if self.pending == 0:
+            self.phase, self.pending = self.phase + 1, self.count
+
+    def ready(self, parity):
+        return (self.phase & 1) != parity
+
+
+def _run_persistent_block(tiles, k_blocks, stages, rounds, seed, release_last=True,
+                          wait_store=True):
+    """One block of ``sm90::gemm_persistent_kernel`` as three actors (the
+    producer thread, two consumer warpgroups of four warps) and the TMA
+    unit, interleaved at random.  Checks that every K block lands in a
+    stage no warpgroup still reads and is read as the right (tile, K block),
+    and that an epilogue buffer is written only when its last store has read
+    it.  Returns the (tile, warpgroup) order of the epilogues; raises on a
+    deadlock."""
+    rng = np.random.default_rng(seed)
+    full = [_Barrier(1) for _ in range(stages)]
+    empty = [_Barrier(8) for _ in range(stages)]
+    ring = [None] * stages
+    reading = [set(), set()]      # stages a warpgroup's products may still read
+    loads = []                    # TMA loads in flight: (stage, data)
+    stores = [0, 0]               # store groups still reading a warpgroup's buffer
+    epilogues = []
+
+    def producer():
+        stage = phase = 0
+        for tile in tiles:
+            for kb in range(k_blocks):
+                yield lambda s=stage, p=phase: empty[s].ready(p ^ 1)
+                loads.append((stage, (tile, kb)))
+                stage, phase = (0, phase ^ 1) if stage + 1 == stages else (stage + 1, phase)
+
+    def consumer(wg):
+        stage = phase = 0
+        for tile in tiles:
+            prev = None
+            for kb in range(k_blocks):
+                yield lambda s=stage, p=phase: full[s].ready(p)
+                assert ring[stage] == (tile, kb)
+                reading[wg].add(stage)
+                if kb > 0:
+                    reading[wg].discard(prev)
+                    for _ in range(4):
+                        empty[prev].arrive()
+                prev = stage
+                stage, phase = (0, phase ^ 1) if stage + 1 == stages else (stage + 1, phase)
+            reading[wg].discard(prev)
+            if release_last:
+                for _ in range(4):
+                    empty[prev].arrive()
+            for _ in range(rounds):
+                if wait_store:
+                    yield lambda: stores[wg] == 0  # cp.async.bulk.wait_group.read 0
+                assert stores[wg] == 0, "the buffer is written while a store reads it"
+                epilogues.append((tile, wg))
+                stores[wg] += 1                    # the round's store group, committed
+
+    actors = [producer(), consumer(0), consumer(1)]
+    waits = [None] * 3
+    done = [False] * 3
+    while not all(done) or loads or any(stores):
+        choices = [("actor", i) for i in range(3)
+                   if not done[i] and (waits[i] is None or waits[i]())]
+        choices += [("load", i) for i in range(len(loads))]
+        choices += [("store", wg) for wg in (0, 1) if stores[wg]]
+        assert choices, "deadlock"
+        kind, i = choices[rng.integers(len(choices))]
+        if kind == "load":
+            stage, data = loads.pop(i)
+            assert not any(stage in r for r in reading), "a load overwrote a stage being read"
+            ring[stage] = data
+            full[stage].arrive()
+        elif kind == "store":
+            stores[i] -= 1
+        else:
+            try:
+                waits[i] = next(actors[i])
+            except StopIteration:
+                done[i], waits[i] = True, None
+    return epilogues
+
+
+@pytest.mark.parametrize("rows,cols,bn,batch", PERSISTENT_SHAPES)
+@pytest.mark.parametrize("ring", ["configured", "two stages"])
+def test_persistent_ring_carries_across_tiles(rows, cols, bn, batch, ring):
+    """The ring's stage and phase run on across tile boundaries in the
+    producer and the consumers alike, every stage goes back once a tile is
+    done with it, and each epilogue round waits for its buffer's last store:
+    the first, a middle and the last block of each shape, with a K of 2-16
+    blocks and the stage count of its configuration or a ring of two, whose
+    phase flips at every other K block."""
+    rounds = sm90.PERSISTENT_ROUNDS
+    grid, plan = sm90.persistent_tiles(rows, cols, bn, batch)
+    paired = cols == 4096  # the SwiGLU product's f32 u, else a bf16 output
+    stages = sm90.persistent_config(bn, paired, 4 if paired else 2)[0] if ring == "configured" \
+        else 2
+    k_blocks = 16 if cols == 4096 else 2 + (rows % 7)
+    for block in sorted({0, grid // 2, grid - 1}):
+        order = _run_persistent_block(plan[block], k_blocks, stages, rounds, seed=block)
+        assert sorted(order) == sorted((t, wg) for t in plan[block] for wg in (0, 1)
+                                       for _ in range(rounds))
+        for wg in (0, 1):  # each warpgroup's epilogues in the block's tile order
+            assert [t for t, w in order if w == wg] == [t for t in plan[block]
+                                                        for _ in range(rounds)]
+
+
+def test_persistent_model_catches_a_lost_stage_and_an_early_write():
+    """The model is strict enough to see the two faults the kernel guards
+    against: a tile's last stage never handed back (the producer starves)
+    and an epilogue buffer rewritten before its store has read it."""
+    tiles = [(0, m, 0) for m in range(4)]
+    with pytest.raises(AssertionError, match="deadlock"):
+        _run_persistent_block(tiles, 3, 3, sm90.PERSISTENT_ROUNDS, seed=0, release_last=False)
+    with pytest.raises(AssertionError, match="while a store reads it"):
+        for seed in range(20):  # some interleaving lets the write overtake the store
+            _run_persistent_block(tiles, 3, 3, sm90.PERSISTENT_ROUNDS, seed=seed,
+                                  wait_store=False)

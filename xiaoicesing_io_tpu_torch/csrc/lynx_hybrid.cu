@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) lynx_conv_tail_kernel(
     pw_out_chunk<kFr>(acc, sAct, w2, dim, c0, warp);
     __syncthreads();  // sU and sAct are rewritten by the next chunk
   }
-  store_rows<kFr>(acc, sU + warp * 256, b2, nullptr, nullptr,
+  store_rows<kFr>(acc, sU + warp * 256, b2,
                   out + ((size_t)b * T + t0) * dim, min(kTM, T - t0), dim, warp, lane);
 }
 

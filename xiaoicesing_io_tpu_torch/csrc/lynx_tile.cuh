@@ -1,11 +1,11 @@
-// Device pieces shared by the LYNXNet layer kernels (lynx_layer.cu: K5, K7) and the hybrid conv
-// tail (lynx_hybrid.cu: K8). All three work on tiles of kTM = 16 output rows of one sequence and
-// walk the conv module's inner width in chunks of kNC = 64 columns:
+// Device pieces of the hybrid conv tail (lynx_hybrid.cu: K8), hand-written with WMMA. The tail
+// works on tiles of kTM = 16 output rows of one sequence and walks the conv module's inner width
+// in chunks of kNC = 64 columns:
 //
 //   u [kWin window rows, kNC] f32  -> depthwise conv (k <= 33 taps) + bias -> PReLU -> bf16
 //   act [kTM, kNC]                  -> acc[kTM, dim] += act x w2[chunk rows, :]   (f32, registers)
 //
-// so the [rows, inner] intermediate never leaves the SM. Window row r of a tile starting at
+// so the [rows, inner] activation never leaves the SM. Window row r of a tile starting at
 // sequence row t0 is sequence row t0 - pad_l + r; output row i reads window rows i .. i + k - 1.
 // The [kTM, dim] f32 accumulator lives in WMMA fragments: fragment f of warp w holds columns
 // (f * kWarps + w) * 16 .. + 15, so dim <= 1024 (kFr <= 8 fragments, 64 registers a thread).
@@ -32,12 +32,6 @@ constexpr int kMaxFr = 8;      // accumulator fragments per warp at dim = 1024
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Depthwise conv over time of one chunk, + bias, PReLU, rounded to bf16 (the TPU kernels round
 // here too, before the last product). sU holds the chunk's kWin window rows, f32, row stride ldu,
@@ -96,14 +90,11 @@ __device__ __forceinline__ void pw_out_chunk(FragAcc (&acc)[kFr], const __nv_bfl
   }
 }
 
-// out[r, :] = bf16(acc[r, :] + b2 (+ bf16(x + cond)[r, :] when x is given)) for the tile's first
-// `rows` rows. x, cond and out point at the tile's first row; stage is this warp's 256 floats of
-// shared memory (32-byte aligned).
+// out[r, :] = bf16(acc[r, :] + b2) for the tile's first `rows` rows. out points at the tile's
+// first row; stage is this warp's 256 floats of shared memory (32-byte aligned).
 template <int kFr>
 __device__ __forceinline__ void store_rows(FragAcc (&acc)[kFr], float* stage,
                                            const float* __restrict__ b2,
-                                           const __nv_bfloat16* __restrict__ x,
-                                           const __nv_bfloat16* __restrict__ cond,
                                            __nv_bfloat16* __restrict__ out, int rows, int dim,
                                            int warp, int lane) {
 #pragma unroll
@@ -115,15 +106,7 @@ __device__ __forceinline__ void store_rows(FragAcc (&acc)[kFr], float* stage,
     for (int e = lane; e < 256; e += 32) {
       const int r = e / 16;
       const int n = col + e % 16;
-      if (r < rows) {
-        const size_t i = (size_t)r * dim + n;
-        float v = stage[e] + b2[n];
-        if (x != nullptr) {
-          v += __bfloat162float(
-              __float2bfloat16(__bfloat162float(x[i]) + __bfloat162float(cond[i])));
-        }
-        out[i] = __float2bfloat16(v);
-      }
+      if (r < rows) out[(size_t)r * dim + n] = __float2bfloat16(stage[e] + b2[n]);
     }
     __syncwarp();
   }

@@ -1,6 +1,6 @@
-// Hopper GEMM core shared by csrc/lynx_conv.cu (K1), csrc/wavenet_block.cu (K4) and, through
-// csrc/hifigan_tapconv.cuh, csrc/hifigan_stage.cu (K2) and csrc/hifigan_resblock.cu (K6);
-// sm_90a.
+// Hopper GEMM core shared by csrc/lynx_conv.cu (K1), csrc/lynx_layer.cu (K5, K7),
+// csrc/wavenet_block.cu (K4) and, through csrc/hifigan_tapconv.cuh, csrc/hifigan_stage.cu (K2) and
+// csrc/hifigan_resblock.cu (K6); sm_90a.
 //
 //     out[b, r, n] = epilogue( sum_k A'[b, r, k] * B[n, k] )
 //
@@ -39,10 +39,27 @@
 // with cudaGetDriverEntryPoint, so the library links nothing) and passed to the kernel as
 // __grid_constant__ parameters, as is Args (the producer indexes its tap table in place).
 //
-// Not done yet: persistent blocks or ping-pong consumers (one tile per block here, so a tile's
-// epilogue, the products' largest loss on an H100, overlaps neither the next tile's loads nor
-// its products) and TMA stores. Two-block clusters multicasting B were tried and made both
-// kernels slower (PERF.md).
+// A second entry, launch_persistent, runs the same products on a persistent schedule: one block an
+// SM walks the output tiles in a fixed raster (tile = blockIdx.x + i * gridDim.x, N fastest, then
+// rows, then batch), the ring's stage and phase carrying across tiles, so the producer loads the
+// next tile's K blocks while the consumers run the current tile's epilogue. The epilogue stages
+// its outputs in a buffer of its own (the next tile's loads are landing in the ring by then), in
+// the 128-byte swizzle of 128-byte boxes, and TMA stores (cp.async.bulk.tensor, one bulk group a
+// chunk) write them out while the consumers go on to the next tile's products; a warpgroup waits
+// for its last store to have read the buffer (cp.async.bulk.wait_group.read) before writing it
+// again. Its epilogue kinds: pairs (as above; kPaired too), and rows, whose functor has load4
+// (a plain load, as above) and value4, which returns the four outputs instead of storing them;
+// the thread pairs of the accumulator layout swap halves with one shuffle so that each thread
+// holds four adjacent columns of one row, and with the accumulators live kPersistentBatch pieces
+// are loaded ahead. Even so the rows kind spills at BN 256 (128 accumulators a thread), in K7's
+// output product (lynx_layer.cu, LayerOut) and in the card tests' TestRows; no other kernel of
+// lynx_layer.cu spills. chip_smoke.py prints each kernel's spill bytes from the build log, and
+// PERF.md gives them. The buffer holds half of each warpgroup's columns, written in kRounds = 2
+// rounds, and the ring gets what is left of the 227 KB: 4 stages at BN 256 (the whole tile
+// beside 3 stages was slower, PERF.md).
+//
+// Not done yet: ping-pong consumers (one tile's epilogue under the other warpgroup's products).
+// Two-block clusters multicasting B were tried and made both kernels slower (PERF.md).
 
 #pragma once
 
@@ -445,6 +462,257 @@ struct StoreBiasBf16 {
   __device__ __forceinline__ Out* row(int b, int r) const { return out + ((size_t)b * rows + r) * cols; }
 };
 
+// ---- the persistent schedule --------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The stores committed so far have read their shared memory (they may still be writing).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory writes visible to the TMA unit (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A persistent epilogue of the rows kind: load4 and value4 (see the top of the file).
+template <class E, class = void>
+struct IsRowwiseValue : std::false_type {};
+template <class E>
+struct IsRowwiseValue<E, std::void_t<decltype(&E::value4)>> : std::true_type {};
+
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can have on an H100
+constexpr int kBox = 128;           // bytes of a store box's row: the 128-byte swizzle span
+constexpr int kBoxRows = 64;        // rows of a store box: one warpgroup's rows of the tile
+constexpr int kPersistentBatch = 2;  // pieces a rows-kind epilogue loads before storing any
+
+template <int BN, bool kPaired, class Out>
+struct PersistentConfig {
+  static constexpr int kRounds = 2;                            // epilogue rounds of a tile
+  static constexpr int kOutCols = kPaired ? BN / 2 : BN;       // output columns of a tile
+  static constexpr int kChunkCols = kOutCols / kRounds;        // of one round of the epilogue
+  static constexpr int kChunkBytes = kChunkCols * (int)sizeof(Out);
+  static_assert(kChunkBytes % kBox == 0, "whole boxes");
+  static constexpr int kBoxes = kChunkBytes / kBox;            // store boxes a round
+  static constexpr int kBoxBytes = kBoxRows * kBox;
+  static constexpr int kBufBytes = kBoxes * kBoxBytes;         // one warpgroup's buffer
+  static constexpr int kStageBytes = Config<BN>::kStageBytes;
+  static constexpr int kFit = (kSmemLimit - 1024 - 2 * 8 * 8 - 2 * kBufBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 5 ? kFit : 5;
+  static_assert(kStages >= 2, "the ring needs two stages at least");
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kBufBytes + 1024 + 2 * kStages * 8;
+};
+
+// Byte offset of (row, byte) of a round's outputs in a warpgroup's buffer: box byte / 128, then
+// the row's 128 bytes with its 16-byte pieces swizzled as TMA's 128-byte swizzle reads them.
+__device__ __forceinline__ int swizzled(int row, int byte) {
+  return (byte / kBox) * (kBoxRows * kBox) + row * kBox +
+         ((((byte % kBox) >> 4) ^ (row & 7)) << 4) + (byte & 15);
+}
+
+template <int BN, bool kPaired, class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_persistent_kernel(const __grid_constant__ CUtensorMap map_a,
+                           const __grid_constant__ CUtensorMap map_b,
+                           const __grid_constant__ CUtensorMap map_out,
+                           const __grid_constant__ Args args, const int batch, const Epi epi) {
+  using Cfg = Config<BN>;
+  using Out = typename Epi::Out;
+  using PC = PersistentConfig<BN, kPaired, Out>;
+  constexpr bool kRows = IsRowwiseValue<Epi>::value;
+  static_assert(!(kRows && kPaired), "the rows kind takes a plain product");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* epi_buf = smem + PC::kStages * Cfg::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi_buf + 2 * PC::kBufBytes);
+  uint64_t* empty = full + PC::kStages;
+
+  const int n_tiles = (args.cols + BN - 1) / BN;
+  const int m_tiles = (args.rows + kBM - 1) / kBM;
+  const int tiles = n_tiles * m_tiles * batch;
+  const int k_blocks = args.taps * args.a_k / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < PC::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread walks the block's tiles and keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      const int a_blocks = args.a_k / kBK;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n_tile = tile % n_tiles;
+        const int m_tile = (tile / n_tiles) % m_tiles;
+        const int b = tile / (n_tiles * m_tiles);
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sa = smem + stage * Cfg::kStageBytes;
+          mbar_expect_tx(&full[stage], Cfg::kStageBytes);
+          const int tap = kb / a_blocks;
+          const int row = m_tile * kBM + args.tap_row[tap];
+          tma_load_3d(sa, &map_a, &full[stage], (kb - tap * a_blocks) * kBK, row, b);
+          tma_load_3d(sa + Cfg::kABytes, &map_b, &full[stage], kb * kBK, n_tile * BN, 0);
+          if (++stage == PC::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows wg * 64 .. + 64 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    const int t = threadIdx.x & 127;
+    const int r0 = ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // row in the warpgroup's 64
+    const int c0 = 2 * (lane & 3);
+    const int out_cols = kPaired ? args.cols / 2 : args.cols;
+    uint8_t* buf = epi_buf + wg * PC::kBufBytes;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n_tile = tile % n_tiles;
+      const int m_tile = (tile / n_tiles) % m_tiles;
+      const int b = tile / (n_tiles * m_tiles);
+      float acc[BN / 2];
+      int prev = 0;
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* sa = smem + stage * Cfg::kStageBytes;
+        const uint64_t da = desc_sw128(sa + wg * 64 * kBK * 2);
+        const uint64_t db = desc_sw128(sa + Cfg::kABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, (kb | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kb > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == PC::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      // the tile's last stage goes back too: the producer is already on the next tile
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // ---- epilogue, in kRounds rounds of kChunkCols output columns: values into the
+      // swizzled buffer, then one thread stores the round's boxes ----
+      const int row_base = m_tile * kBM + wg * 64;
+      const int col_base = n_tile * PC::kOutCols;
+#pragma unroll
+      for (int c = 0; c < PC::kRounds; ++c) {
+        if (t == 0) bulk_wait_read();  // the buffer's last store has read it
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+        if constexpr (kRows) {
+          // Lanes l and l ^ 1 hold columns c0, c0 + 1 of rows r0 and r0 + 8 each; one shuffle
+          // gives the even lane four columns of row r0 and the odd lane four of row r0 + 8.
+          // at most kPersistentBatch pieces' inputs in flight: the accumulators stay live here
+          constexpr int kJ = BN / 8 / PC::kRounds;
+          constexpr int kB = Epi::kBatch < kPersistentBatch ? Epi::kBatch : kPersistentBatch;
+          constexpr int kBatch = kB < kJ ? kB : kJ;
+          static_assert(kJ % kBatch == 0, "batches");
+          const int odd = lane & 1;
+          const int rr = r0 + 8 * odd;
+          const int r = row_base + rr;
+          const int cq = 4 * ((lane & 3) >> 1);
+#pragma unroll
+          for (int j0 = 0; j0 < kJ; j0 += kBatch) {
+            typename Epi::In in[kBatch];
+#pragma unroll
+            for (int jj = 0; jj < kBatch; ++jj) {
+              const int col = col_base + 8 * (c * kJ + j0 + jj) + cq;
+              if (r < args.rows && col < args.cols) in[jj] = epi.load4(b, r, col);
+            }
+#pragma unroll
+            for (int jj = 0; jj < kBatch; ++jj) {
+              const int j = c * kJ + j0 + jj;
+              const int i = 4 * j;
+              const float send_x = odd ? acc[i] : acc[i + 2];
+              const float send_y = odd ? acc[i + 1] : acc[i + 3];
+              const float got_x = __shfl_xor_sync(0xffffffffu, send_x, 1);
+              const float got_y = __shfl_xor_sync(0xffffffffu, send_y, 1);
+              const float4 z = odd ? make_float4(got_x, got_y, acc[i + 2], acc[i + 3])
+                                   : make_float4(acc[i], acc[i + 1], got_x, got_y);
+              const int col = col_base + 8 * j + cq;
+              if (r < args.rows && col < args.cols) {
+                *reinterpret_cast<typename Epi::Out4*>(
+                    buf + swizzled(rr, (8 * (j0 + jj) + cq) * (int)sizeof(Out))) =
+                    epi.value4(b, r, col, z, in[jj]);
+              }
+            }
+          }
+        } else {
+          using Pair = typename Epi::Pair;
+          constexpr int kJ = PC::kOutCols / 8 / PC::kRounds;
+#pragma unroll
+          for (int jj = 0; jj < kJ; ++jj) {
+            const int j = c * kJ + jj;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int rr = r0 + 8 * h;
+              const int i = 4 * j + 2 * h;
+              const int col = col_base + 8 * j + c0;
+              if (row_base + rr < args.rows && col < out_cols) {
+                Pair v;
+                if constexpr (kPaired) {
+                  const int i2 = i + BN / 4;  // column c + BN / 2 of the tile
+                  v = epi.value(b, row_base + rr, col, acc[i], acc[i + 1], acc[i2], acc[i2 + 1]);
+                } else {
+                  v = epi.value(b, row_base + rr, col, acc[i], acc[i + 1]);
+                }
+                *reinterpret_cast<Pair*>(buf + swizzled(rr, (8 * jj + c0) * (int)sizeof(Out))) =
+                    v;
+              }
+            }
+          }
+        }
+        fence_async_shared();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+        if (t == 0 && row_base < args.rows) {
+#pragma unroll
+          for (int x = 0; x < PC::kBoxes; ++x) {
+            const int col = col_base + c * PC::kChunkCols + x * (kBox / (int)sizeof(Out));
+            if (col < out_cols) tma_store_3d(&map_out, buf + x * PC::kBoxBytes, col, row_base, b);
+          }
+          bulk_commit();
+        }
+      }
+    }
+    if (t == 0) bulk_wait();  // the block's stores are done before its shared memory goes
+  }
+}
+
 // ---- host side ----------------------------------------------------------------------------------
 
 inline CUtensorMap load_map(const void* host_bytes) {
@@ -476,6 +744,43 @@ inline cudaError_t launch(const void* map_a, const void* map_b, const Args& args
   }
   const dim3 grid((args.cols + BN - 1) / BN, m_tiles, batch);
   kernel<<<grid, kThreads, Cfg::kSmem, stream>>>(load_map(map_a), load_map(map_b), args, epi);
+  return cudaGetLastError();
+}
+
+// The persistent entry: map_out is the output's store map (sm90_encode_store_map, boxes of 64 rows
+// x 128 bytes, 128-byte swizzle). Grid: one block an SM, fewer when there are fewer tiles.
+template <int BN, bool kPaired, class Epi>
+inline cudaError_t launch_persistent(const void* map_a, const void* map_b, const void* map_out,
+                                     const Args& args, int batch, const Epi& epi,
+                                     cudaStream_t stream) {
+  const long long m_tiles = (args.rows + kBM - 1) / kBM;
+  const long long tiles = ((long long)args.cols + BN - 1) / BN * m_tiles * batch;
+  if (args.rows < 1 || args.cols < 1 || args.a_k < kBK || args.a_k % kBK || args.taps < 1 ||
+      args.taps > kMaxTaps || args.cols % 8 || batch < 1 || tiles > 0x7fffffffLL ||
+      (kPaired && args.cols % BN)) {
+    return cudaErrorInvalidValue;
+  }
+  using PC = PersistentConfig<BN, kPaired, typename Epi::Out>;
+  auto kernel = gemm_persistent_kernel<BN, kPaired, Epi>;
+  static bool smem_set[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  int n_sms = device < kMaxDevices ? sms[device] : 0;
+  if (n_sms == 0) {
+    e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) sms[device] = n_sms;
+  }
+  if (device >= kMaxDevices || !smem_set[device]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PC::kSmem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) smem_set[device] = true;
+  }
+  const int grid = (int)(tiles < n_sms ? tiles : n_sms);
+  kernel<<<grid, kThreads, PC::kSmem, stream>>>(load_map(map_a), load_map(map_b),
+                                                  load_map(map_out), args, batch, epi);
   return cudaGetLastError();
 }
 
@@ -520,6 +825,29 @@ extern "C" int sm90_encode_map(void* out, const void* base, long long d0, long l
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  std::memcpy(out, &map, sizeof(map));
+  return 0;
+}
+
+// The store map of a row-major f32 (elem_bytes 4) or bf16 (2) tensor seen as [d2, d1, d0], for
+// the persistent entry's TMA stores: box {128 bytes of a row, 64 rows, 1}, 128-byte swizzle (the
+// layout its epilogue stages). Returns a CUDA error code, 0 on success.
+extern "C" int sm90_encode_store_map(void* out, const void* base, long long d0, long long d1,
+                                     long long d2, long long s1, long long s2, int elem_bytes) {
+  sm90::EncodeTiledFn encode = sm90::encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  const cuuint32_t box[3] = {(cuuint32_t)(sm90::kBox / elem_bytes), (cuuint32_t)sm90::kBoxRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      &map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
   std::memcpy(out, &map, sizeof(map));
   return 0;

@@ -12,7 +12,8 @@
 | ``lynx_hybrid``     | ``xiaoicesing_io_tpu/ops/pallas/lynx_hybrid.py:lynx_conv_module_hybrid``  |
 
 Sources live in ``csrc/`` and are built by :mod:`.build` at first use.
-``lynx_conv``, ``wavenet_block``, ``hifigan_stage`` and ``hifigan_resblock``
-run their products on the Hopper GEMM core ``csrc/sm90_gemm.cuh``, whose
+``lynx_conv``, ``lynx_layer``, ``wavenet_block``, ``hifigan_stage`` and
+``hifigan_resblock`` run their products on the Hopper GEMM core
+``csrc/sm90_gemm.cuh`` (``lynx_layer``'s K7 on its persistent entry), whose
 host-side plan is :mod:`.sm90`.
 """

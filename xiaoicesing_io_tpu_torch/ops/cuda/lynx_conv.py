@@ -139,10 +139,11 @@ def kernel_operands(weights) -> _Operands:
                      sm90.encode("lynx_conv", w2_t, bn_out), bn_in, bn_out)
 
 
-def check_widths(dim: int, inner: int, kernel_size: int) -> None:
+def check_widths(dim: int, inner: int, kernel_size: int, fn: str = "lynx_conv_module") -> None:
+    """The widths K1's passes take (K5 and K7 take the same)."""
     if dim % 64 or inner % 64 or min(dim, inner) < 64 or not 1 <= kernel_size <= 33:
         raise ValueError(
-            f"lynx_conv_module kernel needs dim % 64 == 0, inner % 64 == 0 and 1 <= k <= 33 "
+            f"{fn} kernel needs dim % 64 == 0, inner % 64 == 0 and 1 <= k <= 33 "
             f"(dim={dim}, inner={inner}, k={kernel_size})"
         )
 

@@ -29,11 +29,41 @@ import torch
 
 from . import build
 from .lynx_conv import _pads, dwconv_prelu
-from .lynx_layer import check_weights, weight_spec
 
 launches = 0  # conv_tail calls that launched K8
 
+MAX_DIM = 1024  # the tail's [16, dim] f32 accumulator lives in WMMA fragments (lynx_tile.cuh)
+
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def weight_spec(dim: int, inner: int, k: int):
+    """Name, dtype and shape of each tensor of ``prepare_weights``' tuple."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return (("ln_scale", f32, (dim,)), ("ln_bias", f32, (dim,)),
+            ("w_in", bf16, (dim, 2 * inner)), ("b_in", f32, (2 * inner,)),
+            ("dw_kernel", f32, (k, inner)), ("dw_bias", f32, (inner,)),
+            ("alpha", f32, (inner,)), ("w2", bf16, (inner, dim)), ("b2", f32, (dim,)))
+
+
+def check_weights(fn: str, device, weights, spec, dim: int, inner: int, k: int) -> None:
+    """Raise unless K8's ``weights`` match ``spec`` (contiguous, on
+    ``device``), the widths are the kernel's and its WMMA operands are
+    32-byte aligned (``w2`` is read by WMMA loads from device memory)."""
+    for t, (name, dtype, shape) in zip(weights, spec, strict=True):
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} {shape} tensor on {device} "
+                f"(see prepare_layer_weights), got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if dtype == torch.bfloat16 and t.data_ptr() % 32:
+            raise ValueError(f"{fn}: {name} must be 32-byte aligned (WMMA loads from memory)")
+    if dim % 64 or dim > MAX_DIM or inner % 64 or not 1 <= k <= 33:
+        raise ValueError(
+            f"{fn} kernel needs dim % 64 == 0 with dim <= {MAX_DIM}, inner % 64 == 0 and "
+            f"k <= 33 (dim={dim}, inner={inner}, k={k})"
+        )
 
 
 def conv_head(x, ln_scale, ln_bias, w_in, b_in, product_dtype=torch.bfloat16) -> torch.Tensor:

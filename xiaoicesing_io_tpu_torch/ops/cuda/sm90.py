@@ -1,5 +1,5 @@
-"""Host side of the Hopper GEMM core (``csrc/sm90_gemm.cuh``) that K1, K2, K4
-and K6 run on.
+"""Host side of the Hopper GEMM core (``csrc/sm90_gemm.cuh``) that K1, K2, K4,
+K5, K6 and K7 run on.
 
 The core computes ``out[b, r, n] = epilogue(sum_k A'[b, r, k] * B[n, k])``
 with A read through a 3-D TMA tensor map ``[batch, rows, width]`` and B
@@ -23,7 +23,9 @@ plain Python that the CPU tests reach:
   :func:`tap_k_major` the kept taps' K-major copy, zero past the width.
 * :func:`map_plan` is a tensor map's dims, byte strides and box;
   :func:`check_operand` raises on what TMA refuses (16-byte aligned base and
-  strides).
+  strides).  :func:`store_map_plan` is the box of the persistent entry's TMA
+  stores (K7), :func:`persistent_config` its ring and epilogue buffer in
+  shared memory and :func:`persistent_tiles` its blocks' walk over the tiles.
 * :class:`Prepared` is a ``prepare_weights`` tuple that also keeps the
   K-major copies and their encoded tensor maps, built (and the weights
   checked) at the first launch; :func:`kept_on` keeps such operands on one
@@ -47,6 +49,11 @@ PAIR = 64    # columns of each half in a paired tile, at the least
 MAP_BYTES = 128  # sizeof(CUtensorMap)
 MAX_TAPS = 64    # rows of the core's tap table (sm90::kMaxTaps)
 MAX_REACH = 1 << 30  # (k - 1) * d of a tap conv: its row shifts are 32-bit
+STORE_BOX_BYTES = 128  # a store box's row: the 128-byte swizzle span (sm90::kBox)
+STORE_BOX_ROWS = 64    # a store box's rows: one consumer warpgroup's (sm90::kBoxRows)
+SMEM_LIMIT = 232448    # dynamic shared memory a block can have on an H100
+SMS = 132              # SMs of an H100 SXM: the persistent grid's blocks at most
+PERSISTENT_ROUNDS = 2  # epilogue rounds of a persistent tile (sm90::PersistentConfig::kRounds)
 
 
 def pair_width(half: int) -> int:
@@ -139,12 +146,51 @@ def map_plan(t: torch.Tensor, box_rows: int):
     return (cols, rows, batch), (cols * es, rows * cols * es), (BK, box_rows, 1)
 
 
-def check_operand(fn: str, name: str, t: torch.Tensor, hint: str = "") -> None:
-    """What a TMA operand must be: contiguous, its base and row stride 16-byte aligned."""
+def store_map_plan(t: torch.Tensor):
+    """(dims, byte strides, box) of the store map of a contiguous f32 or bf16
+    ``[rows, cols]`` or ``[batch, rows, cols]``: boxes of one 128-byte swizzle
+    span of a row (32 f32 or 64 bf16 columns) by 64 rows, one warpgroup's
+    rows of a tile."""
+    dims, strides, _ = map_plan(t, BM)
+    return dims, strides, (STORE_BOX_BYTES // t.element_size(), STORE_BOX_ROWS, 1)
+
+
+def persistent_config(bn: int, paired: bool, out_bytes: int):
+    """``(stages, buffer bytes of a warpgroup, shared bytes)`` of the
+    persistent entry (``sm90::PersistentConfig``): the epilogue buffer holds
+    one round's share of each warpgroup's columns (half of them, written in
+    :data:`PERSISTENT_ROUNDS` rounds), in whole 128-byte boxes of 64 rows,
+    and the ring takes up to 5 stages of what is left."""
+    out_cols = bn // 2 if paired else bn
+    chunk = out_cols // PERSISTENT_ROUNDS * out_bytes
+    if chunk % STORE_BOX_BYTES:
+        raise ValueError(f"a round of {chunk} bytes a row is not whole boxes")
+    buf = chunk // STORE_BOX_BYTES * STORE_BOX_ROWS * STORE_BOX_BYTES
+    stage = (BM + bn) * BK * 2
+    stages = min((SMEM_LIMIT - 1024 - 2 * 8 * 8 - 2 * buf) // stage, 5)
+    return stages, buf, stages * stage + 2 * buf + 1024 + 2 * stages * 8
+
+
+def persistent_tiles(rows: int, cols: int, bn: int, batch: int, sms: int = SMS):
+    """The persistent entry's grid and each block's tiles, in order, as
+    ``(batch, m_tile, n_tile)``: tile ``blockIdx.x + i * gridDim.x`` of a
+    raster with N fastest, then rows, then batch."""
+    n_tiles, m_tiles = -(-cols // bn), -(-rows // BM)
+    tiles = n_tiles * m_tiles * batch
+    grid = min(tiles, sms)
+    return grid, [[(t // (n_tiles * m_tiles), (t // n_tiles) % m_tiles, t % n_tiles)
+                   for t in range(block, tiles, grid)] for block in range(grid)]
+
+
+def check_operand(fn: str, name: str, t: torch.Tensor, hint: str = "",
+                  reader: str = "TMA") -> None:
+    """What an operand that ``reader`` reads must be: contiguous, its base
+    and row stride 16-byte aligned.  ``reader`` is TMA for a tensor map's
+    operand, or the vector loads of a kernel that indexes rows itself."""
     if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be contiguous{hint}")
+        raise ValueError(f"{fn}: {name} must be contiguous ({reader}){hint}")
     if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
-        raise ValueError(f"{fn}: {name} must be 16-byte aligned, base and rows (TMA){hint}")
+        raise ValueError(f"{fn}: {name} must be 16-byte aligned, base and rows ({reader}){hint}")
 
 
 _ENCODE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_longlong] * 5 + [ctypes.c_int]
@@ -175,6 +221,18 @@ def encode(lib_name: str, t: torch.Tensor, box_rows: int) -> ctypes.Array:
     return buf
 
 
+def encode_store(lib_name: str, t: torch.Tensor) -> ctypes.Array:
+    """The store map of f32 or bf16 ``t`` for the core's persistent entry
+    (:func:`store_map_plan`), encoded through ``lib_name``'s
+    ``sm90_encode_store_map``; keep ``t`` alive with it."""
+    dims, strides, _ = store_map_plan(t)
+    buf = ctypes.create_string_buffer(MAP_BYTES)
+    status = function(lib_name, "sm90_encode_store_map", _ENCODE_ARGTYPES)(
+        ctypes.addressof(buf), t.data_ptr(), *dims, *strides, t.element_size())
+    build.check(status, "cuTensorMapEncodeTiled (store)")
+    return buf
+
+
 class MapCache:
     """Tensor maps of activations, keyed by (address, shape, box rows): a map
     holds nothing else, so a hit is the same map.  A sampler loop meets the
@@ -184,12 +242,21 @@ class MapCache:
         self.lib_name, self.size, self.maps = lib_name, size, {}
 
     def get(self, t: torch.Tensor, box_rows: int) -> ctypes.Array:
-        key = (t.data_ptr(), tuple(t.shape), box_rows)
+        """The load map of :func:`encode` (boxes of 64 columns x ``box_rows``)."""
+        return self._get(t, box_rows)
+
+    def get_store(self, t: torch.Tensor) -> ctypes.Array:
+        """The store map of :func:`encode_store`."""
+        return self._get(t, None)
+
+    def _get(self, t: torch.Tensor, box_rows) -> ctypes.Array:
+        key = (t.data_ptr(), tuple(t.shape), t.dtype, box_rows)
         buf = self.maps.get(key)
         if buf is None:
             if len(self.maps) >= self.size:
                 self.maps.clear()
-            buf = self.maps[key] = encode(self.lib_name, t, box_rows)
+            buf = self.maps[key] = (encode_store(self.lib_name, t) if box_rows is None
+                                    else encode(self.lib_name, t, box_rows))
         return buf
 
 
@@ -201,13 +268,16 @@ def tile_n(n: int) -> int:
 class Prepared(tuple):
     """A ``prepare_weights`` tuple.  On the card it also keeps the GEMM core's
     operands (K-major copies and their tensor maps), built by ``make`` at the
-    first launch and reused by every later one; the tuple itself is
-    unchanged, so every kernel that reads it reads the same tensors."""
+    first launch and reused by every later launch that passes the same
+    ``make`` (K1, K5 and K7 pass ``lynx_conv.kernel_operands``); the tuple
+    itself is unchanged, so every kernel that reads it reads the same
+    tensors."""
 
     def operands(self, make: Callable[["Prepared"], tuple]) -> tuple:
-        ops = self.__dict__.get("_sm90")
+        cache = self.__dict__.setdefault("_sm90", {})
+        ops = cache.get(make)
         if ops is None:
-            ops = self.__dict__["_sm90"] = make(self)
+            ops = cache[make] = make(self)
         return ops
 
 
