@@ -101,9 +101,13 @@ edge shapes (fewer tiles than SMs, a ragged last row tile, dim 1536 and dim
 latter each one's time, ``gemm_library_ms`` (the layer's two products as
 cuBLAS bf16 products alone), host microseconds per call and the device
 split of its four launches (LayerNorm, SwiGLU product, conv, output
-product), then K7's two products beside K5's.  Then K8 ``conv_tail``
-against its plain version at the same shape
-(on the PyTorch head's output for the same ``x``).
+product), then K7's two products beside K5's.  Then K8 ``conv_tail`` (on
+the GEMM core too, since its redesign) against its plain version on the
+PyTorch head's output at the same four edge shapes and at the sweep's shape
+(the head's output for the same ``x``); at the latter its time, the head's,
+``gemm_library_ms`` (its output product ``act @ w2`` as one cuBLAS bf16
+product), host microseconds per call and the device split of its two
+launches (conv, output product).
 
 Phase 5b (after phase 5, so ``--kernels-only`` covers it) holds K3
 ``mel_spectrogram`` at the shipped ``MelConfig`` (44.1 kHz, n_fft = win 2048,
@@ -113,7 +117,10 @@ within 1e-3 nats over the true frames less the last 2 (bucket padding
 changes the reflected tail), at B=4 x 2048 frames of uniform noise in
 [-0.5, 0.5] and at B=2 with an off-bucket length; shapes must be equal.
 Its ``library_ms`` is ``torch.stft`` (cuFFT) + the dense mel product + log on
-the same input, timed here only.
+the same input, timed here only.  Then, at the timed shape, K3's host
+microseconds per call and its per-phase split (``[K3 split]``: copies of
+``csrc/mel_spec.cu`` cut after each of its phases, built beside the kernels
+and timed in turns with it).
 
 Tolerance of a kernel against its plain version (same inputs, bf16 products,
 TF32 off): max |kernel - plain| <= 0.02 * max |plain| and correlation >
@@ -127,9 +134,10 @@ steps: mel within 5 % of its scale, corr > 0.999; wav corr > 0.99.
 Since the redesign of K1 and K4 on the Hopper GEMM core, phases 3 and 5
 also cover the edge shapes above and print ``gemm_library_ms``, the host
 cost per call and the per-pass device split; since that of K2 and K6 on the
-same core, phases 4 and 5d do too, and since that of K5 and K7, phase 5c.
-The entries of K1, K2, K4, K5, K6 and K7 in the kernels line carry
-``gemm_library_ms`` and ``host_us`` (K2's and K6's also ``cudnn_bf16_ms``).
+same core, phases 4 and 5d do too, and since that of K5, K7 and K8, phase 5c.
+The entries of K1, K2, K4, K5, K6, K7 and K8 in the kernels line carry
+``gemm_library_ms`` and ``host_us`` (K2's and K6's also ``cudnn_bf16_ms``);
+K3's carries ``host_us``.
 Phases 6 and 7 print the device's busy share of ``synthesize`` and phase 9
 that of the ``module``, ``v1``, ``v2`` and ``v3`` sweep calls: the kernel
 time of one call in a device-only ``torch.profiler`` window over the host
@@ -602,6 +610,70 @@ def k3_bound(prep, B: int, T: int):
     return bound_ms(nbytes, 0.0, flop)
 
 
+# K3's phases, in the order its source marks them; a copy of the source cut at a marker ends the
+# kernel there, writing what the last kept phase left (the frame's samples or the planes' first
+# words) so that nothing before it is optimised away
+K3_PHASES = (("staging", "  // 1. lane n1", "x[m]"), ("step 1", "  // 2.-3. lane k2", "re[m]"),
+             ("step 3", "  // 4. the real split", "re[m]"),
+             ("real split", "  // 5. sparse mel", "re[m]"))
+
+
+def k3_phase_split(prep, y, reps: int = 20) -> dict:
+    """Device microseconds of each of K3's phases (staging, step 1, step 3,
+    real split, mel projection) at ``y``'s shape: copies of
+    ``csrc/mel_spec.cu`` cut after each phase, built beside the kernels and
+    timed in turns with the whole kernel; a phase is the difference of two
+    cuts' times."""
+    import ctypes
+
+    import torch
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import build
+    from xiaoicesing_io_tpu_torch.ops.cuda import mel_spec as K3
+
+    src = (build.CSRC / "mel_spec.cu").read_text()
+    end = src.index("\ntemplate <int N1, int N2>\ncudaError_t launch")
+    work = build.BUILD_DIR / "mel_phases"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, marker, kept in K3_PHASES:
+        cut = src[:src.index(marker)] + (
+            "  __syncwarp();\n  float* ob = out + (static_cast<size_t>(b) * n_frames + f0 + warp)"
+            f" * n_mels;\n  for (int m = lane; m < n_mels; m += 32) ob[m] = {kept};\n}}\n"
+        ) + src[end:]
+        cu = work / f"{name.replace(' ', '_')}.cu"
+        cu.write_text(cut)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+             str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def entry(lib):
+        fn = lib.mel_spec_launch
+        fn.argtypes, fn.restype = K3._ARGTYPES, ctypes.c_int
+        return fn
+
+    fns = {"whole": entry(build.load("mel_spec"))}
+    for name, proc in procs.items():
+        log_text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"K3 split: the cut after {name} did not build:\n{log_text[-2000:]}")
+        fns[name] = entry(ctypes.CDLL(str(work / f"{name.replace(' ', '_')}.so")))
+    out = torch.empty(y.shape[0], prep.num_frames(y.shape[1]), prep.n_mels, device=y.device)
+    args = K3.launch_args(y, prep, out)
+    order = [name for name, _, _ in K3_PHASES] + ["whole"]
+    ms = {name: [] for name in order}
+    for rnd in range(2):  # in turns, forward then backward
+        for name in (order if rnd == 0 else order[::-1]):
+            ms[name].append(cuda_ms(lambda fn=fns[name]: build.check(fn(*args), "K3 split"), reps))
+    t = {name: sum(v) / len(v) * 1e3 for name, v in ms.items()}
+    split = {"staging": t["staging"]}
+    for (prev, _, _), (name, _, _) in zip(K3_PHASES, K3_PHASES[1:]):
+        split[name] = t[name] - t[prev]
+    split["mel projection"] = t["whole"] - t["real split"]
+    return split
+
+
 def check_k3(reps: int = 20) -> dict:
     import numpy as np
     import torch
@@ -653,12 +725,17 @@ def check_k3(reps: int = 20) -> dict:
     plain_ms = cuda_ms(lambda: ext.torch(y), 5)
     library_ms = cuda_ms(library, reps)
     bms, by = k3_bound(prep, B_TIME, y.shape[1])
+    us = host_us(lambda: K3.mel_spectrogram(y, prep))
+    frames, smem = K3.block_plan(prep.n_fft, prep.hop_size, prep.num_frames(y.shape[1]))
     log(f"[K3] ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} "
-        f"[B={B_TIME}, {K3_FRAMES} frames; library = torch.stft + mel product + log, "
-        f"max |library - kernel| {lib_err:.6g}]")
+        f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f} "
+        f"[B={B_TIME}, {K3_FRAMES} frames, {frames} a block, {smem} B of shared memory, FFT "
+        f"{' x '.join(map(str, K3.fft_split(prep.n_fft)))}; library = torch.stft + mel product "
+        f"+ log, max |library - kernel| {lib_err:.6g}]")
+    log(f"[K3 split] {split_text(k3_phase_split(prep, y))} (copies of the kernel cut after "
+        f"each phase, timed in turns)")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms}
+            "bound_by": by, "library_ms": library_ms, "host_us": us}
 
 
 # ---------------------------------------------------------------------------
@@ -685,13 +762,15 @@ def tail_bound(B, T, dim=1024, inner=2048, k=31):
     return bound_ms(nbytes, 2 * rows * inner * dim, 2 * rows * inner * k)
 
 
-# K5's and K7's edge shapes: fewer tiles than SMs, a ragged last row tile, dims above the cap
-# of 1024 that their WMMA versions had
+# K5's, K7's and K8's edge shapes: fewer tiles than SMs, a ragged last row tile, dims above the
+# cap of 1024 that their WMMA versions had
 LAYER_EDGES = ((1, 37, 1024, 2048, 31), (4, 2049, 1024, 2048, 31), (2, 1000, 1536, 3072, 31),
                (1, 2048, 2048, 4096, 31))
 # the launches of K5 and K7: LayerNorm, the SwiGLU product, the conv, the output product
 LAYER_PARTS = {"layer norm": ("layer_norm_kernel",), "SwiGLU product": ("SwigluEpi",),
                "conv": ("dwconv_prelu",), "output product": ("LayerOut",)}
+# the launches of K8: the conv over the bf16 head output, the output product
+TAIL_PARTS = {"conv": ("dwconv_prelu",), "output product": ("StoreBiasBf16",)}
 
 
 def layer_inputs(B: int, T: int, dim: int = 1024, inner: int = 2048, k: int = 31, seed: int = 0):
@@ -711,7 +790,6 @@ def check_variants(reps: int = 10) -> dict:
     head's output for the same x."""
     import torch
 
-    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
     from xiaoicesing_io_tpu_torch.ops.cuda import lynx_layer as K5
 
     entries = (("K5", "lynx_layer_fused", K5.lynx_layer_fused),
@@ -764,22 +842,55 @@ def check_variants(reps: int = 10) -> dict:
             f"{part}: K5 {splits['K5'][part]:.1f} us, K7 {splits['K7'][part]:.1f} us"
             for part in ("SwiGLU product", "output product")))
 
-    act = K8.conv_head(x, *weights[:4])
-    tail = weights[4:]
-    got = K8.conv_tail(act, tail, kernel_size=k)
+    out["K8"] = check_k8(x, weights, reps)
+    return out
+
+
+def check_k8(x, weights, reps: int) -> dict:
+    """K8 ``conv_tail`` on the PyTorch head's output against its plain
+    version at the edge shapes of K5 and K7, then at the sweep's shape on the
+    head's output for ``x`` and ``weights``, where it is timed with its
+    cuBLAS product, the head, its host cost and its per-pass split."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+
+    errs = []
+    for B, T, dim, inner, k in LAYER_EDGES:
+        xe, params = k1_inputs(B, T, dim, inner, k, seed=T + dim + 8)
+        we = K1.prepare_weights(*params)
+        head = K8.conv_head(xe, *we[:4])
+        got = K8.conv_tail(head, we, kernel_size=k)
+        torch.cuda.synchronize()
+        errs.append(compare(f"K8 conv_tail [B={B},T={T},dim={dim},inner={inner},k={k}]", got,
+                            K8.conv_tail_plain(head, *we[4:], kernel_size=k)))
+        del xe, we, head, got
+    B, T, k = B_TIME, T_TIME, 31
+    head = K8.conv_head(x, *weights[:4])
+
+    def call():
+        return K8.conv_tail(head, weights, kernel_size=k)
+
+    got = call()
     torch.cuda.synchronize()
-    err = compare(f"K8 conv_tail {shape}", got, K8.conv_tail_plain(act, *params[4:],
-                                                                     kernel_size=k))
+    errs.append(compare("K8 conv_tail [B=4,T=2048,dim=1024,inner=2048,k=31]", got,
+                        K8.conv_tail_plain(head, *weights[4:], kernel_size=k)))
     del got
-    ms = cuda_ms(lambda: K8.conv_tail(act, tail, kernel_size=k), reps)
-    plain_ms = cuda_ms(lambda: K8.conv_tail_plain(act, *params[4:], kernel_size=k), 3)
+    ms = cuda_ms(call, reps)
+    plain_ms = cuda_ms(lambda: K8.conv_tail_plain(head, *weights[4:], kernel_size=k), 3)
+    # the GEMM core's yardstick: the output product act @ w2 as one cuBLAS bf16 product
+    act = torch.zeros(B * T, weights[7].shape[0], dtype=torch.bfloat16, device="cuda")
+    gemm_ms = cuda_ms(lambda: torch.matmul(act, weights[7]), reps)
     bms, by = tail_bound(B, T)
     head_ms = cuda_ms(lambda: K8.conv_head(x, *weights[:4]), reps)
-    log(f"[K8] ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}) "
-        f"share_of_bound={bms / ms:.3f} (the torch head before it: {head_ms:.4f} ms)")
-    out["K8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                 "bound_by": by}
-    return out
+    us = host_us(call)
+    log(f"[K8] ms={ms:.4f} plain_ms={plain_ms:.4f} gemm_library_ms={gemm_ms:.4f} "
+        f"bound_ms={bms:.4f} ({by}) share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f} "
+        f"(the torch head before it: {head_ms:.4f} ms)")
+    log(f"[K8 split] {split_text(labelled_split(call, TAIL_PARTS))}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "gemm_library_ms": gemm_ms, "host_us": us}
 
 
 # ---------------------------------------------------------------------------

@@ -393,7 +393,7 @@ LAYER_SHAPES = [
     (2, 4100, 256, 512, 31),    # more tiles than SMs, a ragged last row tile
     (3, 2500, 1024, 2048, 31),  # the main-path width, T off any bucket
 ]
-# K5 and K7 only (K8 keeps its cap at 1024): widths above the cap K5 and K7 had before the GEMM core
+# widths above the cap of 1024 that K5, K7 and K8 had before the GEMM core
 WIDE_LAYER_SHAPES = [
     (2, 700, 1536, 3072, 31),
     (1, 1000, 2048, 4096, 31),
@@ -422,13 +422,13 @@ def test_lynx_layer_kernels_match_plain(cuda, entry, B, T, dim, inner, k):
     _rel_close(got, K5.lynx_layer_fused_plain(x, cond, step, *params, kernel_size=k))
 
 
-@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES)
+@pytest.mark.parametrize("B,T,dim,inner,k", LAYER_SHAPES + WIDE_LAYER_SHAPES)
 def test_conv_tail_kernel_matches_plain(cuda, B, T, dim, inner, k):
     rng = np.random.default_rng(7)
     act = _bf16(rng, (B, T, inner), cuda, std=0.5)
     params = _k1_params(rng, dim, inner, k, cuda)
     before = K8.launches
-    got = K8.conv_tail(act, K1.prepare_weights(*params)[4:], kernel_size=k)
+    got = K8.conv_tail(act, K1.prepare_weights(*params), kernel_size=k)
     torch.cuda.synchronize()
     assert K8.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (B, T, dim)
@@ -464,14 +464,20 @@ def test_lynx_variants_raise_instead_of_falling_back(cuda):
         shifted = torch.zeros(16 * 128 + 1, device=cuda, dtype=torch.bfloat16)[1:]
         with pytest.raises(ValueError, match="aligned"):
             fn(x, shifted.view(1, 16, 128), step, weights)
-    tail = weights[4:]
     with pytest.raises(TypeError, match="bf16"):
-        K8.conv_tail(torch.zeros(1, 16, 256, device=cuda), tail)
-    with pytest.raises(ValueError, match="prepare_layer_weights"):
-        K8.conv_tail(_bf16(rng, (1, 16, 256), cuda), params[4:])
+        K8.conv_tail(torch.zeros(1, 16, 256, device=cuda), weights)
+    # weights that were not prepared, or a slice of the prepared tuple
+    for unprepared in (params, weights[4:]):
+        with pytest.raises(ValueError, match="prepare_layer_weights"):
+            K8.conv_tail(_bf16(rng, (1, 16, 256), cuda), unprepared)
     with pytest.raises(ValueError, match="inner % 64"):
         K8.conv_tail(_bf16(rng, (1, 16, 96), cuda),
-                     K1.prepare_weights(*_k1_params(rng, 128, 96, 31, cuda))[4:])
+                     K1.prepare_weights(*_k1_params(rng, 128, 96, 31, cuda)))
+    # inner of another width than the weights', or not readable by 16-byte loads
+    with pytest.raises(ValueError, match="inner width 256"):
+        K8.conv_tail(_bf16(rng, (1, 16, 128), cuda), weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.conv_tail(_bf16(rng, (1, 256, 16), cuda).transpose(1, 2), weights)
     assert (K5.launches_v2, K5.launches_v3, K8.launches) == counts
 
 
@@ -654,6 +660,24 @@ def test_mel_spec_kernel_matches_plain_and_numpy(cuda, n_fft, win_quarters, B):
     assert torch.isfinite(got).all()
     assert (got - plain).abs().max().item() <= K3_TOL_PLAIN
     assert np.abs(got.cpu().numpy() - ref).max() <= K3_TOL_NUMPY
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_mel_spec_kernel_takes_rows_at_any_word(cuda, offset):
+    """A waveform whose row starts on any 4-byte word: the kernel stages the
+    16-byte aligned part of each block's span with vector loads and the rest
+    one sample at a time."""
+    from xiaoicesing_io_tpu_torch.ops.mel import MelSpectrogram
+
+    cfg = _mel_cfg(1024, 768)
+    ext = MelSpectrogram(cfg)
+    T = cfg.hop_size * 90 + 13
+    y_np = np.random.default_rng(offset).uniform(-0.5, 0.5, T + 4).astype(np.float32)
+    y = torch.from_numpy(y_np).to(cuda)[offset:offset + T][None]
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4 * offset
+    got = K3.mel_spectrogram(y, ext.prepared(cuda))
+    assert (got - ext.torch(y)).abs().max().item() <= K3_TOL_PLAIN
+    assert np.abs(got.cpu().numpy() - ext.numpy(y.cpu().numpy())).max() <= K3_TOL_NUMPY
 
 
 def test_mel_spec_kernel_raises_instead_of_falling_back(cuda):

@@ -152,20 +152,27 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("small", [False, True])
 def test_kernel_band_tables_rebuild_the_filterbank(small):
-    """The kernel's sparse ``(first_bin, count, offset)`` bands hold every
+    """The kernel's sparse bands (groups of 32, their runs of weights
+    interleaved by lane and zero-padded to the group's widest) hold every
     nonzero weight of the filterbank, and no bin past ``n_bins`` is weighted."""
     cfg = P.MelConfig(**(SMALL if small else {}))
     prep = K3.prepare_mel(cfg)
     basis = P.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)
-    rebuilt = np.zeros_like(basis)
-    for m in range(cfg.n_mels):
-        f, c, o = (int(t[m]) for t in (prep.band_first, prep.band_count, prep.band_offset))
-        rebuilt[m, f:f + c] = prep.weights[o:o + c].numpy()
-    np.testing.assert_array_equal(rebuilt, basis)
+    rebuilt = np.zeros((len(prep.band_first), basis.shape[1] + int(prep.group_count.max())))
+    weights = prep.weights.numpy()
+    off = 0
+    for j, width in enumerate(prep.group_count.tolist()):
+        for lane in range(32):
+            f = int(prep.band_first[32 * j + lane])
+            rebuilt[32 * j + lane, f:f + width] = weights[off + lane:off + 32 * width:32]
+        off += 32 * width
+    assert off == len(weights)
+    assert not rebuilt[:, basis.shape[1]:].any() and not rebuilt[cfg.n_mels:].any()
+    np.testing.assert_array_equal(rebuilt[:cfg.n_mels, :basis.shape[1]], basis)
     assert not basis[:, prep.n_bins:].any() and basis[:, prep.n_bins - 1].any()
-    assert prep.nnz == len(prep.weights)
+    assert prep.nnz == np.count_nonzero(basis)
     if not small:  # the shipped filterbank's bands, as the kernel's bound counts them
-        assert (prep.nnz, prep.n_bins, int(prep.band_count.max())) == (1460, 744, 43)
+        assert (prep.nnz, prep.n_bins, int(prep.group_count.max())) == (1460, 744, 43)
     # twiddles exp(-2 pi i k / n_fft) from float64, stored f32
     k = np.arange(cfg.n_fft // 2)
     tw = np.exp(-2j * np.pi * k / cfg.n_fft)

@@ -1,5 +1,5 @@
 """The host-side plan of the Hopper GEMM core (``ops/cuda/sm90.py``) that K1,
-K2, K4, K5, K6 and K7 trust, on the CPU.
+K2, K4, K5, K6, K7 and K8 trust, on the CPU.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 What they take from the host is checked here: the K-major and column-paired
@@ -138,9 +138,10 @@ def test_lynx_weight_copies_undo_to_jax_layout(dim, inner):
 
 
 def test_prepared_weights_stay_the_shared_tuple():
-    """K8 reads ``prepare_weights``' tuple as it is; the GEMM core's operands
-    of K1, K5 and K7 (``lynx_conv.kernel_operands``) are built once and kept
-    beside it."""
+    """``prepare_weights``' tuple is the one every kernel reads; the GEMM
+    core's operands (K1's, K5's and K7's ``lynx_conv.kernel_operands``, K8's
+    ``lynx_hybrid.kernel_operands``) are built once and kept beside it.  A
+    slice is a plain tuple that keeps nothing, so K8 takes the whole tuple."""
     params = _k1_params(np.random.default_rng(1), 64, 128, 31)
     weights = K1.prepare_weights(*params)
     assert isinstance(weights, tuple) and len(weights) == 9
@@ -834,6 +835,93 @@ def test_k5_k7_width_checks_take_k1s_widths():
         K1.check_widths(dim, inner, 31, "lynx_layer_fused")
     with pytest.raises(ValueError, match="lynx_layer_fused_v3 kernel needs dim % 64"):
         K1.check_widths(1056 + 8, 2048, 31, "lynx_layer_fused_v3")
+
+
+# ---------------------------------------------------------------------------
+# K8: numpy walk of the two launches against the plain version
+# ---------------------------------------------------------------------------
+
+def _k8_walk(inner, weights, k, dtype):
+    """K8's launches (``csrc/lynx_hybrid.cu``): K1's conv pass over the
+    ``inner`` rows (staged as f32, zero outside each sequence) into ``act``
+    in the activation dtype, then the output product's tiles on the core with
+    the ``StoreBiasBf16`` epilogue, ``rnd(acc + b2)``, rows and columns
+    guarded."""
+    rnd = _rounding(dtype)
+    B, T, n = inner.shape
+    dw, dw_bias, alpha, w2, b2 = (t.double().numpy() for t in weights[4:])
+    w2_t = sm90.k_major(torch.from_numpy(w2)).numpy()
+    dim = w2_t.shape[0]
+    rows = B * T
+    act = rnd(_dwconv_emulated(inner, dw, dw_bias, alpha, k)).reshape(rows, n)
+    out = np.full((rows, dim), np.nan)
+    bn = sm90.tile_n(dim)
+    plan = sm90.tap_plan(n, 1, 0)
+    for m0 in range(0, rows, sm90.BM):
+        for n0 in range(0, dim, bn):
+            acc = _gemm_tile(act, w2_t, m0, n0, bn, plan)
+            r, c = min(sm90.BM, rows - m0), min(bn, dim - n0)
+            out[m0:m0 + r, n0:n0 + c] = rnd(acc[:r, :c] + b2[n0:n0 + c])
+    assert not np.isnan(out).any()
+    return out.reshape(B, T, dim)
+
+
+@pytest.mark.parametrize("B,T,dim,inner,k,dtype", [
+    (2, 100, 64, 128, 31, torch.float32),     # two sequences: the conv's halo must not cross
+    (1, 150, 192, 384, 7, torch.float32),     # dim % 128 != 0: a guarded 128-column tile
+    (2, 37, 128, 64, 32, torch.float32),      # an even kernel: pad_r = pad_l - 1
+    (1, 170, 64, 192, 33, torch.float32),     # the widest kernel, two conv row blocks
+    (2, 130, 128, 256, 31, torch.bfloat16),   # the card's rounding points: act, out
+    (1, 60, 1536, 64, 31, torch.bfloat16),    # dim 1536, past the WMMA version's cap
+])
+def test_k8_launches_reproduce_plain(B, T, dim, inner, k, dtype):
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+
+    rng = np.random.default_rng(dim + inner + k + 8)
+    params = _k1_params(rng, dim, inner, k)
+    weights = K1.prepare_weights(*params, product_dtype=dtype)
+    x = torch.tensor(0.5 * rng.standard_normal((B, T, inner)), dtype=torch.float32).to(dtype)
+    # the CPU route takes the whole tuple and runs the plain version on its tail
+    ref = K8.conv_tail(x, weights, kernel_size=k)
+    assert torch.equal(ref, K8.conv_tail_plain(x, *weights[4:], kernel_size=k))
+    ref = ref.double().numpy()
+    got = _k8_walk(x.double().numpy(), weights, k, dtype)
+    assert np.abs(ref).max() > 0.05
+    _close(got, ref, dtype)
+
+
+def test_k8_takes_k1s_widths_and_copies_only_w2(monkeypatch):
+    """K8's width check is K1's, with no cap on dim; its maker checks the
+    tail's weights and builds ``w2``'s K-major copy and map alone (the head's
+    ``w_in`` is never copied)."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_hybrid as K8
+
+    encoded = []
+
+    def encode(lib, t, box_rows):
+        encoded.append((lib, tuple(t.shape), box_rows))
+        return ("map", lib, tuple(t.shape), box_rows)
+
+    monkeypatch.setattr(sm90, "encode", encode)
+    assert not hasattr(K8, "MAX_DIM")
+    for dim, inner in ((1536, 64), (2048, 128), (192, 64)):
+        K1.check_widths(dim, inner, 31, "conv_tail")
+        weights = K1.prepare_weights(*_k1_params(np.random.default_rng(dim), dim, inner, 31))
+        ops = weights.operands(K8.kernel_operands)
+        assert weights.operands(K8.kernel_operands) is ops
+        assert torch.equal(ops.w2_t, weights[7].t()) and ops.w2_t.is_contiguous()
+        assert (ops.dim, ops.inner, ops.bn_out) == (dim, inner, sm90.tile_n(dim))
+        assert ops.map_w2 == ("map", "lynx_hybrid", (dim, inner), sm90.tile_n(dim))
+    assert encoded == [("lynx_hybrid", (1536, 64), 256), ("lynx_hybrid", (2048, 128), 256),
+                       ("lynx_hybrid", (192, 64), 128)]
+    with pytest.raises(ValueError, match="conv_tail kernel needs dim % 64"):
+        K1.check_widths(1000, 2048, 31, "conv_tail")
+    with pytest.raises(ValueError, match="conv_tail kernel needs dim % 64"):
+        K1.check_widths(1024, 2048, 35, "conv_tail")
+    bad = list(K1.prepare_weights(*_k1_params(np.random.default_rng(0), 64, 64, 31)))
+    bad[8] = bad[8].double()
+    with pytest.raises(ValueError, match="conv_tail: b2 must be a contiguous"):
+        sm90.Prepared(bad).operands(K8.kernel_operands)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 // The LYNXNet conv module's memory-bound passes and its SwiGLU epilogue, shared by K1
-// (csrc/lynx_conv.cu) and K5 / K7 (csrc/lynx_layer.cu); sm_90a.
+// (csrc/lynx_conv.cu), K5 / K7 (csrc/lynx_layer.cu) and, the conv alone, K8 (csrc/lynx_hybrid.cu);
+// sm_90a.
 //
 //   layer_norm_kernel      LayerNorm over the rows a Rows functor yields (f32, two passes, one
 //                          warp a row), written as bf16 xn: K1's rows are its bf16 input, K5's and
 //                          K7's the layer's f32 h = bf16(x + cond) + step[b] (LayerRows);
 //   SwigluEpi              the paired product's epilogue: b_in, SwiGLU, f32 u;
-//   dwconv_prelu_kernel    depthwise conv over time (k <= 33) + bias + PReLU over f32 u, rows
-//                          outside [0, T) read as zero, written as bf16 act.
+//   dwconv_prelu_kernel    depthwise conv over time (k <= 33) + bias + PReLU, rows outside [0, T)
+//                          read as zero, written as bf16 act; over f32 u (K1, K5, K7) or over the
+//                          bf16 inner rows of the hybrid head (K8, csrc/lynx_hybrid.cu).
 //
-// Internal linkage, as in sm90_gemm.cuh: both libraries include this header.
+// Internal linkage, as in sm90_gemm.cuh: every library that includes this header has its own copy.
 
 #pragma once
 
@@ -120,8 +122,25 @@ struct SwigluEpi {
   __device__ __forceinline__ float* row(int, int r) const { return u + (size_t)r * inner; }
 };
 
+// A 16-byte load of In: 4 f32 values or 8 bf16 values, staged as f32.
+template <class In>
+__device__ __forceinline__ void stage16(const In* src, float* dst) {
+  if constexpr (sizeof(In) == 4) {
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+  }
+}
+
+// In = float: K1's, K5's and K7's f32 u; In = __nv_bfloat16: K8's bf16 inner rows.
+template <class In>
 __global__ void __launch_bounds__(kDwThreads) dwconv_prelu_kernel(
-    const float* __restrict__ u,        // [B, T, inner]
+    const In* __restrict__ u,           // [B, T, inner]
     const float* __restrict__ dw,       // [k, inner]
     const float* __restrict__ dw_bias,  // [inner]
     const float* __restrict__ alpha,    // [inner]
@@ -131,19 +150,24 @@ __global__ void __launch_bounds__(kDwThreads) dwconv_prelu_kernel(
   const int c0 = blockIdx.x * kDwCh;
   const int t0 = blockIdx.y * kDwRows;
   const int b = blockIdx.z;
-  const float* ub = u + (size_t)b * T * inner;
+  const In* ub = u + (size_t)b * T * inner;
   const int staged = kDwRows + k - 1;  // rows past it meet zero taps only; they are zeroed
+  constexpr int kVec = 16 / sizeof(In);  // values of a 16-byte load
   // unrolled, so that a thread's loads are in flight together
 #pragma unroll
-  for (int v = threadIdx.x; v < kDwStaged * (kDwCh / 4); v += kDwThreads) {
-    const int r = v / (kDwCh / 4);
-    const int q = (v % (kDwCh / 4)) * 4;
+  for (int v = threadIdx.x; v < kDwStaged * (kDwCh / kVec); v += kDwThreads) {
+    const int r = v / (kDwCh / kVec);
+    const int q = (v % (kDwCh / kVec)) * kVec;
     const int t = t0 - pad_l + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst = su + r * kDwCh + q;
     if (r < staged && t >= 0 && t < T) {
-      val = *reinterpret_cast<const float4*>(ub + (size_t)t * inner + c0 + q);
+      stage16(ub + (size_t)t * inner + c0 + q, dst);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; i += 4) {
+        *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
-    *reinterpret_cast<float4*>(su + r * kDwCh + q) = val;
   }
   const int j = threadIdx.x % kDwCh;
   const int run = threadIdx.x / kDwCh;
@@ -179,11 +203,12 @@ __global__ void __launch_bounds__(kDwThreads) dwconv_prelu_kernel(
   }
 }
 
+template <class In = float>
 inline cudaError_t dwconv_prelu(const void* u, const void* dw, const void* dw_bias,
                                 const void* alpha, void* act, int B, int T, int inner, int k,
                                 int pad_l, cudaStream_t s) {
-  dwconv_prelu_kernel<<<dim3(inner / kDwCh, (T + kDwRows - 1) / kDwRows, B), kDwThreads, 0, s>>>(
-      static_cast<const float*>(u), static_cast<const float*>(dw),
+  dwconv_prelu_kernel<In><<<dim3(inner / kDwCh, (T + kDwRows - 1) / kDwRows, B), kDwThreads, 0, s>>>(
+      static_cast<const In*>(u), static_cast<const float*>(dw),
       static_cast<const float*>(dw_bias), static_cast<const float*>(alpha),
       static_cast<__nv_bfloat16*>(act), T, inner, k, pad_l);
   return cudaGetLastError();

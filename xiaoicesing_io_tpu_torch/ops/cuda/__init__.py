@@ -12,8 +12,11 @@
 | ``lynx_hybrid``     | ``xiaoicesing_io_tpu/ops/pallas/lynx_hybrid.py:lynx_conv_module_hybrid``  |
 
 Sources live in ``csrc/`` and are built by :mod:`.build` at first use.
-``lynx_conv``, ``lynx_layer``, ``wavenet_block``, ``hifigan_stage`` and
-``hifigan_resblock`` run their products on the Hopper GEMM core
-``csrc/sm90_gemm.cuh`` (``lynx_layer``'s K7 on its persistent entry), whose
-host-side plan is :mod:`.sm90`.
+``lynx_conv``, ``lynx_layer``, ``lynx_hybrid``, ``wavenet_block``,
+``hifigan_stage`` and ``hifigan_resblock`` run their products on the Hopper
+GEMM core ``csrc/sm90_gemm.cuh`` (``lynx_layer``'s K7 on its persistent
+entry), whose host-side plan is :mod:`.sm90`; ``lynx_conv``, ``lynx_layer``
+and ``lynx_hybrid`` share the conv pass of ``csrc/lynx_passes.cuh``.
+``mel_spec`` is an FFT, one warp a frame in registers, whose host-side plan
+is in its own module.
 """

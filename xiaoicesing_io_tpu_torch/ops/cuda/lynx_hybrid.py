@@ -15,55 +15,29 @@ Replaces ``xiaoicesing_io_tpu/ops/pallas/lynx_hybrid.py:lynx_conv_module_hybrid`
   ``+ b2``, written in ``inner``'s dtype.
 
 The module output has the residual NOT added (``lynx_hybrid.py:72``).  The
-weights are ``lynx_conv.prepare_weights``' tuple.  On a CPU tensor the tail
-runs :func:`conv_tail_plain`; on a CUDA tensor it launches
-``csrc/lynx_hybrid.cu`` or raises.  The kernel takes bf16 ``inner``,
-dim % 64 == 0 up to 1024, inner % 64 == 0 and k <= 33.
+weights are ``lynx_conv.prepare_weights``' tuple, whole.  On a CPU tensor the
+tail runs :func:`conv_tail_plain`; on a CUDA tensor it launches
+``csrc/lynx_hybrid.cu`` (K1's conv pass over the bf16 rows, then K1's output
+product on the GEMM core ``csrc/sm90_gemm.cuh``) or raises.  The kernel takes
+bf16 ``inner`` (contiguous, 16-byte aligned) and K1's widths: dim % 64 == 0
+and inner % 64 == 0 with no cap on dim, k <= 33.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 
 import torch
 
-from . import build
-from .lynx_conv import _pads, dwconv_prelu
+from . import build, sm90
+from .lynx_conv import _pads, check_widths, dwconv_prelu
 
 launches = 0  # conv_tail calls that launched K8
 
-MAX_DIM = 1024  # the tail's [16, dim] f32 accumulator lives in WMMA fragments (lynx_tile.cuh)
-
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-
-
-def weight_spec(dim: int, inner: int, k: int):
-    """Name, dtype and shape of each tensor of ``prepare_weights``' tuple."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    return (("ln_scale", f32, (dim,)), ("ln_bias", f32, (dim,)),
-            ("w_in", bf16, (dim, 2 * inner)), ("b_in", f32, (2 * inner,)),
-            ("dw_kernel", f32, (k, inner)), ("dw_bias", f32, (inner,)),
-            ("alpha", f32, (inner,)), ("w2", bf16, (inner, dim)), ("b2", f32, (dim,)))
-
-
-def check_weights(fn: str, device, weights, spec, dim: int, inner: int, k: int) -> None:
-    """Raise unless K8's ``weights`` match ``spec`` (contiguous, on
-    ``device``), the widths are the kernel's and its WMMA operands are
-    32-byte aligned (``w2`` is read by WMMA loads from device memory)."""
-    for t, (name, dtype, shape) in zip(weights, spec, strict=True):
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"{fn}: {name} must be a contiguous {dtype} {shape} tensor on {device} "
-                f"(see prepare_layer_weights), got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if dtype == torch.bfloat16 and t.data_ptr() % 32:
-            raise ValueError(f"{fn}: {name} must be 32-byte aligned (WMMA loads from memory)")
-    if dim % 64 or dim > MAX_DIM or inner % 64 or not 1 <= k <= 33:
-        raise ValueError(
-            f"{fn} kernel needs dim % 64 == 0 with dim <= {MAX_DIM}, inner % 64 == 0 and "
-            f"k <= 33 (dim={dim}, inner={inner}, k={k})"
-        )
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TAIL = slice(4, 9)  # dw_kernel, dw_bias, alpha, w2, b2 of the prepared tuple
+_TAIL_NAMES = ("dw_kernel", "dw_bias", "alpha", "w2", "b2")
 
 
 def conv_head(x, ln_scale, ln_bias, w_in, b_in, product_dtype=torch.bfloat16) -> torch.Tensor:
@@ -87,40 +61,74 @@ def conv_tail_plain(inner, dw_kernel, dw_bias, alpha, w2, b2,
     return out.to(pd)
 
 
+_Operands = namedtuple("_Operands", "device dim inner w2_t map_w2 bn_out")
+_maps = sm90.MapCache("lynx_hybrid")
+
+
+def kernel_operands(weights) -> _Operands:
+    """K8's maker for ``Prepared.operands``: checks the tail's weights once,
+    then builds ``w2``'s K-major copy, its tensor map and the N tile (the
+    head's ``w_in`` is never copied)."""
+    dw, dw_bias, alpha, w2, b2 = weights[_TAIL]
+    inner, dim = w2.shape
+    expect = ((dw, torch.float32, (dw.shape[0], inner)), (dw_bias, torch.float32, (inner,)),
+              (alpha, torch.float32, (inner,)), (w2, torch.bfloat16, (inner, dim)),
+              (b2, torch.float32, (dim,)))
+    for name, (t, dtype, shape) in zip(_TAIL_NAMES, expect):
+        if t.device != w2.device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"conv_tail: {name} must be a contiguous {dtype} {shape} tensor on {w2.device} "
+                f"(see prepare_weights), got {t.dtype} {tuple(t.shape)} on {t.device}")
+        sm90.check_operand("conv_tail", name, t, " (see prepare_weights)")
+    w2_t = sm90.k_major(w2)
+    bn_out = sm90.tile_n(dim)
+    return _Operands(w2.device, dim, inner, w2_t, sm90.encode("lynx_hybrid", w2_t, bn_out), bn_out)
+
+
 def _launch(inner, weights, kernel_size: int) -> torch.Tensor:
     global launches
     if inner.dtype != torch.bfloat16:
         raise TypeError(f"conv_tail kernel takes bf16 inner activations, got {inner.dtype}")
+    if not isinstance(weights, sm90.Prepared):
+        raise ValueError("conv_tail: weights must be the whole tuple of prepare_weights "
+                         "(or prepare_layer_weights)")
     B, T, n = inner.shape
-    dim = weights[3].shape[1]
-    check_weights("conv_tail", inner.device, weights, weight_spec(dim, n, kernel_size)[4:],
-                  dim, n, kernel_size)
-    inner = inner.contiguous()
-    if inner.data_ptr() % 16:
-        raise ValueError("conv_tail: inner must be 16-byte aligned (vector loads)")
+    dim = weights[7].shape[1]
+    check_widths(dim, n, kernel_size, "conv_tail")
+    ops = weights.operands(kernel_operands)
+    dw = weights[4]
+    if ops.device != inner.device or ops.inner != n or dw.shape[0] != kernel_size:
+        raise ValueError(
+            f"conv_tail: weights of inner width {ops.inner} with {dw.shape[0]} taps on "
+            f"{ops.device} for inner {tuple(inner.shape)} on {inner.device}, k={kernel_size} "
+            f"(see prepare_weights)")
+    sm90.check_operand("conv_tail", "inner", inner, reader="vector loads")
+    rows = B * T
+    act = torch.empty(rows, n, dtype=torch.bfloat16, device=inner.device)
     out = torch.empty(B, T, dim, dtype=torch.bfloat16, device=inner.device)
-    lib = build.load("lynx_hybrid")
-    fn = lib.lynx_conv_tail_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    _, dw_bias, alpha, _, b2 = weights[_TAIL]
     pad_l, _ = _pads(kernel_size)
-    ptrs = [t.data_ptr() for t in (inner, *weights, out)]
     with torch.cuda.device(inner.device):
-        status = fn(*ptrs, B, T, dim, n, kernel_size, pad_l, build.stream_ptr(inner.device))
+        map_act = _maps.get(act, sm90.BM)
+        fn = sm90.function("lynx_hybrid", "lynx_conv_tail_launch", _ARGTYPES)
+        status = fn(ctypes.addressof(map_act), ctypes.addressof(ops.map_w2),
+                    *[t.data_ptr() for t in (inner, dw, dw_bias, alpha, b2, act, out)],
+                    B, T, dim, n, kernel_size, pad_l, ops.bn_out, build.stream_ptr(inner.device))
     build.check(status, "conv_tail launch")
     launches += 1
     return out
 
 
-def conv_tail(inner, tail_weights, *, kernel_size: int = 31) -> torch.Tensor:
-    """K8: ``[B, T, dim]`` from the bf16 head output ``inner``;
-    ``tail_weights`` are the last five of ``prepare_weights``' tuple
-    (``dw_kernel``, ``dw_bias``, ``alpha``, ``w2``, ``b2``)."""
+def conv_tail(inner, weights, *, kernel_size: int = 31) -> torch.Tensor:
+    """K8: ``[B, T, dim]`` from the bf16 head output ``inner``; ``weights``
+    are ``prepare_weights``' whole tuple (the tail reads its last five:
+    ``dw_kernel``, ``dw_bias``, ``alpha``, ``w2``, ``b2``)."""
     if inner.device.type == "cpu":
-        return conv_tail_plain(inner, *tail_weights, kernel_size=kernel_size)
+        return conv_tail_plain(inner, *weights[_TAIL], kernel_size=kernel_size)
     if inner.device.type != "cuda":
         raise ValueError(f"conv_tail: unsupported device {inner.device}")
-    return _launch(inner, tail_weights, kernel_size)
+    return _launch(inner, weights, kernel_size)
 
 
 def lynx_conv_module_hybrid(x, weights, *, kernel_size: int = 31) -> torch.Tensor:
@@ -129,4 +137,4 @@ def lynx_conv_module_hybrid(x, weights, *, kernel_size: int = 31) -> torch.Tenso
     ``lynx_conv.prepare_weights``; the head's product dtype is ``w_in``'s."""
     ln_scale, ln_bias, w_in, b_in = weights[:4]
     inner = conv_head(x, ln_scale, ln_bias, w_in, b_in, product_dtype=w_in.dtype)
-    return conv_tail(inner, weights[4:], kernel_size=kernel_size).to(x.dtype)
+    return conv_tail(inner, weights, kernel_size=kernel_size).to(x.dtype)

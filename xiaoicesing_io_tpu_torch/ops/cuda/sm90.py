@@ -1,5 +1,5 @@
 """Host side of the Hopper GEMM core (``csrc/sm90_gemm.cuh``) that K1, K2, K4,
-K5, K6 and K7 run on.
+K5, K6, K7 and K8 run on.
 
 The core computes ``out[b, r, n] = epilogue(sum_k A'[b, r, k] * B[n, k])``
 with A read through a 3-D TMA tensor map ``[batch, rows, width]`` and B
@@ -269,7 +269,8 @@ class Prepared(tuple):
     """A ``prepare_weights`` tuple.  On the card it also keeps the GEMM core's
     operands (K-major copies and their tensor maps), built by ``make`` at the
     first launch and reused by every later launch that passes the same
-    ``make`` (K1, K5 and K7 pass ``lynx_conv.kernel_operands``); the tuple
+    ``make`` (K1, K5 and K7 pass ``lynx_conv.kernel_operands``, K8
+    ``lynx_hybrid.kernel_operands``); the tuple
     itself is unchanged, so every kernel that reads it reads the same
     tensors."""
 
