@@ -28,7 +28,10 @@ Phases, each printed on its own line:
      T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8; its
      ``gemm_library_ms`` (the three tap products and the output product as
      cuBLAS bf16 products), host microseconds per call and per-launch device
-     times as for K1;
+     times as for K1; then K4 at the variance model's heads, B=1, T=256 and
+     1024, C=256 and 192 (the pitch and multi-variance WaveNets), d=16 and 8,
+     each held against its plain version and timed beside its plain version
+     and ``gemm_library_ms``, with its device time alone (``device_ms``);
   6. the LYNXNet + rectified-flow configuration (``configs/acoustic.json``)
      at full width with random weights: one sample ``.ds``, every segment,
      through the port's ``DiffSingerAcousticInfer.run_inference`` and the
@@ -49,6 +52,28 @@ Phases, each printed on its own line:
      and K2 and K6 as in phase 6, the same check against the reference, and a
      batched timing through the bench's cell ``wavenet_ddpm_b4_t2048`` (40
      DDIM steps) at 2 runs;
+  7b. the variance -> acoustic pipeline at full width with random weights
+     under the reference names: a variance model at the shipped widths of
+     ``configs/variance.json`` (fs2 256 x 4, durations 512 x 5, pitch
+     WaveNet 256 x 20 at cycle 5, variance WaveNet 192 x 10 at cycle 4 with
+     energy, breathiness, voicing and tension, 2 speakers, reflow, 20 Euler
+     steps from t = 0) runs ``DiffSingerVarianceInfer.run_inference`` on the
+     sample ``.ds`` stripped of ``ph_dur``, ``f0_seq`` and the curves
+     (auto-completion) with a static two-speaker mix: K4 must launch 10 x 20
+     x (20 + 10) = 6000 times and nothing else; the written ``.ds`` must
+     hold whole-frame ``ph_dur`` summing over each word to its duration (to
+     the rounding of its phonemes) and finite f0 and curves, one value a
+     frame; one segment again on the f32 modules from the same noise (pitch
+     within 10 cents RMS, corr > 0.999; each curve within 1 % of its
+     normalizer's range RMS); its seconds, K4's device ms (``torch.profiler``)
+     and audio-s/s.  Then one segment under DDPM (DDIM, 100 of 1000 steps:
+     3000 launches).  Then the written ``.ds`` through the LYNXNet acoustic
+     runner of phase 6 with every optional input on (the four curve
+     embeddings, a dynamic two-speaker mix, a ``gender`` curve, a
+     ``velocity`` curve): a finite wav of frames*hop samples a segment, K1,
+     K2 and K6 launching as in phase 6, and every segment's mel against the
+     runner's f32 module path from the same noise at the bars of
+     ``bench/check.py``;
   8. vocoder copy-synthesis (``inference/val_vocoder.copy_synthesis`` on the
      card) with the random full-width vocoder of phase 6, on two files: the
      wav phase 6 rendered from the sample ``.ds`` and a synthetic 2048-frame
@@ -156,7 +181,7 @@ line before the last lists the kernels as JSON (``ms``, ``plain_ms`` and
 calls, K4's the mean over its four dilations, K6's the sum over the 27
 units of stages 2-4; ``launches`` are wrapper calls in the ``.ds`` run of
 the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
-for K4; phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
+for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
 K8).  The last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -548,8 +573,56 @@ def check_k4(reps: int = 20) -> dict:
     ms = sum(times) / len(times)
     log(f"[K4] ms={ms:.4f} (mean of d = {K4_DILATIONS}) gemm_library_ms={gemm_ms:.4f} "
         f"bound_ms={bms:.4f} share_of_bound={bms / ms:.3f} host_us_per_call={us:.1f}")
+    del y, cond, weights, rows
+    variance = check_k4_variance_widths(reps)
+    errs += [row["max_abs_err"] for row in variance]
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": sum(plain_times) / len(plain_times),
-            "bound_ms": bms, "bound_by": by, "gemm_library_ms": gemm_ms, "host_us": us}
+            "bound_ms": bms, "bound_by": by, "gemm_library_ms": gemm_ms, "host_us": us,
+            "variance_widths": variance}
+
+
+# K4 at the variance model's heads: the pitch head (C 256, d up to 16) and the multi-variance
+# head (C 192, d up to 8), one sequence of a 256-frame bucket and of 1024 frames (a segment of
+# the sample song)
+K4_VARIANCE = tuple((1, T, C, d) for C in (256, 192) for T in (256, 1024) for d in (16, 8))
+
+
+def check_k4_variance_widths(reps: int) -> list:
+    """K4 against its plain version at :data:`K4_VARIANCE`; each shape's
+    time beside its plain version's, ``gemm_library_ms`` (its four products
+    as cuBLAS bf16 products) and its bound.  At these sizes a launch's
+    device time is below the wrapper's host time, so back-to-back calls time
+    the host: ``device_ms`` is the kernels' device time alone (a
+    ``torch.profiler`` window)."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench.trace import kernel_us
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
+
+    out = []
+    for B, T, C, d in K4_VARIANCE:
+        y, cond, params = k4_inputs(B, T, C, seed=C + T + d)
+        weights = K4.prepare_weights(*params)
+        got = K4.wavenet_block(y, cond, weights, dilation=d)
+        torch.cuda.synchronize()
+        err = compare(f"K4 wavenet_block [B={B},T={T},C={C},d={d}]", got,
+                      K4.wavenet_block_plain(y, cond, *params, dilation=d))
+        ms = cuda_ms(lambda: K4.wavenet_block(y, cond, weights, dilation=d), reps)
+        plain = cuda_ms(lambda: K4.wavenet_block_plain(y, cond, *params, dilation=d), reps)
+        rows, taps, w_out = y.reshape(B * T, C), weights[0], weights[2]
+        gemm = cuda_ms(lambda: [torch.matmul(rows, w) for w in (taps[0], taps[1], taps[2], w_out)],
+                       reps)
+        bms, by = k4_bound(B, T, C)
+        dev = sum(kernel_us(lambda: K4.wavenet_block(y, cond, weights, dilation=d),
+                            reps).values()) / 1e3 or None
+        log(f"[K4 variance width] B={B} T={T} C={C} d={d}: ms={ms:.4f} device_ms="
+            + (f"{dev:.4f}" if dev else "not measured")
+            + f" plain_ms={plain:.4f} gemm_library_ms={gemm:.4f} bound_ms={bms:.4f} ({by}) "
+            f"share_of_bound={bms / (dev or ms):.3f}")
+        out.append({"B": B, "T": T, "C": C, "d": d, "max_abs_err": err, "ms": ms,
+                    "device_ms": dev, "plain_ms": plain, "gemm_library_ms": gemm,
+                    "bound_ms": bms})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1165,11 +1238,11 @@ def run_vocoder_sweep(name_limit: str, k2_stage_ms, k6_stage_ms) -> None:
 # ---------------------------------------------------------------------------
 
 SAMPLE = "samples/04_仙瑶.ds"
-def drive_main_path(runner, out_dir: Path) -> tuple:
-    """Every segment of one sample ``.ds`` through ``run_inference``, recorded
-    by the bench (``bench/cells.py:song_record``); returns the kernels'
-    launch counts of that run, the ``.ds`` segments, the record and the wav
-    it wrote."""
+def drive_main_path(runner, out_dir: Path, params=None, what: str = SAMPLE) -> tuple:
+    """Every segment of a ``.ds`` (default: the sample's) through
+    ``run_inference``, recorded by the bench (``bench/cells.py:song_record``);
+    returns the kernels' launch counts of that run, the ``.ds`` segments,
+    the record and the wav it wrote."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -1177,7 +1250,8 @@ def drive_main_path(runner, out_dir: Path) -> tuple:
     from xiaoicesing_io_tpu_torch.bench.check import launch_counts, zero_launch_counts
     from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
 
-    params = load_ds(ROOT / SAMPLE)
+    if params is None:
+        params = load_ds(ROOT / SAMPLE)
     hooks, rec = cells.song_record(runner)
     zero_launch_counts()
     t0 = time.perf_counter()
@@ -1202,7 +1276,7 @@ def drive_main_path(runner, out_dir: Path) -> tuple:
     if rate != sr or wav.shape != (expect,) or not np.abs(wav).max() > 0:
         raise AssertionError(f"wav: {rate} Hz, shape {wav.shape}, peak {np.abs(wav).max()}; "
                              f"expected {sr} Hz, ({expect},), non-silent")
-    log(f"[ds] {SAMPLE}: {len(params)} segments, {sum(f for f, _ in segments)} frames -> "
+    log(f"[ds] {what}: {len(params)} segments, {sum(f for f, _ in segments)} frames -> "
         f"{wav.shape[0]} samples ({wav.shape[0] / sr:.2f} s) at {rate} Hz, finite, "
         f"each segment frames*{hop} samples; {seconds:.2f}s host; launches {launches}")
     return launches, params, rec, path
@@ -1287,6 +1361,250 @@ def run_configuration(label: str, cell: str, work: Path, name_limit: str,
     del runner
     torch.cuda.empty_cache()
     return launches, cfg, wav, per_call
+
+
+# ---------------------------------------------------------------------------
+# the variance -> acoustic pipeline: score -> infer variance -> infer acoustic (K4; K1, K2, K6)
+# ---------------------------------------------------------------------------
+
+CURVES = ("energy", "breathiness", "voicing", "tension")
+SPEAKERS = {"s0": 0, "s1": 1}
+SPK_MIX = "s0:0.4|s1:0.6"          # the static mix of --spk on infer variance
+PITCH_TOL_CENTS = 10.0             # RMS, K4's bf16 pitch against the f32 module's
+PITCH_MIN_CORR = 0.999
+CURVE_TOL_SHARE = 0.01             # RMS over the curve normalizer's range
+
+
+def make_variance_experiment(work: Path, diffusion_type: str, seed: int = 0):
+    """A reference-format variance checkpoint at the shipped widths
+    (``configs/variance.json``: fs2 256 x 4, durations 512 x 5, pitch WaveNet
+    256 x 20 at cycle 5, variance WaveNet 192 x 10 at cycle 4) with every
+    curve predicted and two speakers, random weights from ``seed``; the
+    WaveNets' zero-initialised output projections are drawn too, and the
+    duration head's bias is 1.5, so that no phoneme's duration is clamped to
+    0.  Returns the config the runner loads."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.config import variance_defaults
+    from xiaoicesing_io_tpu_torch.models.toplevel import VarianceModel
+    from xiaoicesing_io_tpu_torch.utils.phonemes import PhonemeDictionary
+    from xiaoicesing_io_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+    cfg = variance_defaults()
+    cfg.update(work_dir=str(work), dictionary=str(ROOT / cfg["dictionary"]), use_spk_id=True,
+               num_spk=len(SPEAKERS), diffusion_type=diffusion_type,
+               **{f"predict_{v}": True for v in CURVES})
+    vocab = TokenTextEncoder(PhonemeDictionary.load(cfg["dictionary"]).phoneme_list).vocab_size
+    torch.manual_seed(seed)
+    model = VarianceModel.from_config(cfg, vocab)
+    with torch.no_grad():
+        for backbone in (model.pitch_backbone, model.variance_backbone):
+            backbone.output_projection.weight.normal_(0.0, 0.02)
+        model.fs2.dur_predictor.linear.bias.fill_(1.5)
+    work.mkdir(parents=True)
+    torch.save({"category": "variance",
+                "state_dict": {f"model.{k}": v for k, v in model.state_dict().items()}},
+               work / "model_ckpt_steps_0.ckpt")
+    (work / "spk_map.json").write_text(json.dumps(SPEAKERS))
+    return cfg
+
+
+def check_written_ds(runner, bare, written) -> int:
+    """Each written segment: ``ph_dur`` in whole frames whose sum over each
+    word is the word's duration (to the rounding of its phonemes, half a
+    frame each), and finite ``f0_seq`` and curves of one value a frame.
+    Returns the number of words whose sum is exact."""
+    import numpy as np
+
+    exact = words = 0
+    for i, (seg, out) in enumerate(zip(bare, written)):
+        batch = runner.preprocess_input(seg, idx=i)
+        ph2word, word_dur = batch["ph2word"][0], batch["word_dur"][0]
+        frames = batch["mel2note"].shape[1]
+        dur = np.array(out["ph_dur"].split(), np.float64) / runner.timestep
+        if len(dur) != len(ph2word) or np.abs(dur - np.round(dur)).max() > 1e-3:
+            raise AssertionError(f"segment {i}: ph_dur is not {len(ph2word)} whole frames")
+        sums = np.zeros(len(word_dur) + 1)
+        np.add.at(sums, ph2word, np.round(dur))
+        phones = np.bincount(ph2word, minlength=len(word_dur) + 1)
+        if (np.abs(sums[1:] - word_dur) > 0.5 * phones[1:]).any() or sums[1:].min() <= 0:
+            raise AssertionError(f"segment {i}: word sums {sums[1:]} against {word_dur}")
+        exact += int((sums[1:] == word_dur).sum())
+        words += len(word_dur)
+        for key in ("f0_seq", *CURVES):
+            values = np.array(out[key].split(), np.float64)
+            if values.shape != (frames,) or not np.isfinite(values).all():
+                raise AssertionError(f"segment {i}: {key} has {values.shape} values, finite "
+                                     f"{bool(np.isfinite(values).all())}; expected {frames}")
+        if not (np.array(out["f0_seq"].split(), np.float64) > 0).all():
+            raise AssertionError(f"segment {i}: f0 not positive")
+    log(f"[variance ds] {len(written)} segments written: ph_dur whole frames, word sums within "
+        f"the rounding of their phonemes ({exact} of {words} words exact), f0 and "
+        f"{'/'.join(CURVES)} finite, one value a frame")
+    return exact
+
+
+def check_variance_against_f32(runner, seg) -> None:
+    """One segment through the kernel path and the f32 modules on the card,
+    from the same seed (the same noise): durations equal (no K4 in the
+    duration head), pitch within :data:`PITCH_TOL_CENTS` RMS at corr >
+    :data:`PITCH_MIN_CORR`, each curve within :data:`CURVE_TOL_SHARE` of its
+    normalizer's range RMS."""
+    import numpy as np
+
+    flags = runner.segment_flags(seg)
+    batch = runner.preprocess_input(seg, load_dur=not flags[0] and (flags[1] or flags[2]),
+                                    load_pitch=not flags[1] and flags[2])
+    kd, kp, kv = runner.forward_model(batch, flags, seed=0)
+    fd, fp, fv = runner.forward_model(batch, flags, seed=0, _f32_module=True)
+    if not np.array_equal(kd, fd):
+        raise AssertionError("the duration head differs between the two paths")
+    cents = 100.0 * (kp - fp)
+    rms = float(np.sqrt(np.mean(cents ** 2)))
+    corr = float(np.corrcoef(kp.ravel(), fp.ravel())[0, 1])
+    line = (f"pitch max_abs_err={np.abs(cents).max():.4f} cents rms={rms:.4f} cents "
+            f"corr={corr:.8f} (tolerance rms <= {PITCH_TOL_CENTS}, corr > {PITCH_MIN_CORR})")
+    ok = rms <= PITCH_TOL_CENTS and corr > PITCH_MIN_CORR
+    norm = runner.normalizers["variances"]
+    spans = (norm.spec_max - norm.spec_min).reshape(norm.num_feats, -1)[:, 0]
+    for name, span in zip(runner.model.variance_prediction_list, spans.tolist()):
+        err = kv[name] - fv[name]
+        share = float(np.sqrt(np.mean(err ** 2))) / span
+        line += f"; {name} max_abs_err={np.abs(err).max():.4f} rms/range={share:.6f}"
+        ok = ok and share <= CURVE_TOL_SHARE
+    log(f"[check variance] K4 (bf16) against the f32 modules, one segment of "
+        f"{kp.shape[1]} frames: {line} (curves: rms/range <= {CURVE_TOL_SHARE})")
+    if not ok:
+        raise AssertionError("the variance heads on K4 disagree with their f32 modules")
+
+
+def variance_inputs(segs, timestep: float) -> list:
+    """The written ``.ds`` with the acoustic runner's optional inputs as
+    curves at the frame rate: a two-speaker dynamic mix, a ``gender`` curve
+    and a ``velocity`` curve."""
+    import numpy as np
+
+    out = []
+    for seg in segs:
+        n = len(seg["f0_seq"].split())
+        t = np.arange(n) * timestep
+        mix = 0.5 + 0.5 * np.sin(2 * np.pi * t / 3.0)
+
+        def text(x):
+            return " ".join(f"{v:.4f}" for v in x)
+        out.append(dict(seg, spk_mix={"s0": text(mix), "s1": text(1.0 - mix)},
+                        spk_mix_timestep=str(timestep),
+                        gender=text(0.6 * np.sin(2 * np.pi * t / 5.0)),
+                        gender_timestep=str(timestep),
+                        velocity=text(1.0 + 0.4 * np.sin(2 * np.pi * t / 4.0)),
+                        velocity_timestep=str(timestep)))
+    return out
+
+
+def run_variance_pipeline(work: Path, name_limit: str) -> dict:
+    """Phase 7b: ``infer variance`` on the bare score of the sample song
+    (durations, pitch and curves removed; a static two-speaker mix) at full
+    width on the card, then the written ``.ds`` through ``infer acoustic``
+    with every optional input (variance curves, a dynamic speaker mix,
+    gender, velocity).  Returns the variance song's launch counts."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import cells, check
+    from xiaoicesing_io_tpu_torch.bench.experiment import make_experiment
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer, load_ds
+    from xiaoicesing_io_tpu_torch.inference.variance import DiffSingerVarianceInfer
+    from xiaoicesing_io_tpu_torch.utils.spk_mix import parse_commandline_spk_mix
+
+    t_phase = t0 = time.perf_counter()
+    runner = DiffSingerVarianceInfer(make_variance_experiment(work / "variance", "reflow"),
+                                     device="cuda")
+    log(f"[setup variance] random full-width variance model saved and loaded in "
+        f"{time.perf_counter() - t0:.1f}s; heads on K4: {sorted(runner.kernel_weights)}")
+    drop = {"ph_dur", "f0_seq", "f0_timestep", *CURVES, *(f"{v}_timestep" for v in CURVES)}
+    mix = parse_commandline_spk_mix(SPK_MIX)
+    bare = [dict({k: v for k, v in p.items() if k not in drop}, ph_spk_mix=mix, spk_mix=mix)
+            for p in load_ds(ROOT / SAMPLE)]
+    n = len(bare)
+    layers = {h: len(b.residual_layers) for h, b in runner.heads().items()}
+    steps = check.sampler_steps(runner)
+    expect = {name: 0 for name, _, _ in check.counters()}
+    expect["wavenet_block"] = n * steps * sum(layers.values())
+    out_dir = work / "variance_out"
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    (path,) = runner.run_inference(bare, out_dir, "variance", seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check.launch_counts()
+    log(f"[variance] {SAMPLE} bare score, {n} segments, --spk {SPK_MIX}: {seconds:.2f}s; "
+        f"launches {launches}; expected wavenet_block {n} segments x {steps} steps x "
+        f"({' + '.join(f'{h} {k}' for h, k in layers.items())} layers), every other kernel 0")
+    check.check_launches(launches, expect, True, "the variance song")
+    written = load_ds(path)
+    check_written_ds(runner, bare, written)
+    check_variance_against_f32(runner, bare[0])
+    frames = sum(len(seg["f0_seq"].split()) for seg in written)
+    audio_s = frames * runner.timestep
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.run_inference(bare, work / "variance_prof", "variance", seed=0)
+        torch.cuda.synchronize()
+    k4_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.self_cpu_time_total == 0 and ("GateEpi" in e.key
+                                                   or "StoreBiasBf16" in e.key)) / 1e3
+    log(f"[timing variance] card={name_limit} song={SAMPLE} segments={n} frames={frames} "
+        f"steps={steps} variance_s={seconds:.4f} k4_device_ms="
+        + (f"{k4_ms:.4f}" if k4_ms > 0 else "not measured (no device time in the trace)")
+        + f" audio_s={audio_s:.4f} audio_s_per_s={audio_s / seconds:.4f}")
+    del runner
+    torch.cuda.empty_cache()
+
+    ddpm = DiffSingerVarianceInfer(make_variance_experiment(work / "variance_ddpm", "ddpm"),
+                                   device="cuda")
+    steps = check.sampler_steps(ddpm)
+    want = dict(expect, wavenet_block=steps * sum(layers.values()))
+    check.zero_launch_counts()
+    (path,) = ddpm.run_inference(bare[:1], work / "ddpm_out", "variance", seed=0)
+    got = check.launch_counts()
+    log(f"[variance ddpm] one segment, DDIM {steps} steps of 1000 at speedup "
+        f"{ddpm.cfg['diff_speedup']}: launches {got}; expected wavenet_block "
+        f"{want['wavenet_block']}")
+    check.check_launches(got, want, True, "the DDPM variance segment")
+    check_written_ds(ddpm, bare[:1], load_ds(path))
+    del ddpm
+    torch.cuda.empty_cache()
+
+    over = cells.cell_overrides(cells.CELLS["lynx_reflow_b4_t2048"])
+    over.update(use_spk_id=True, num_spk=len(SPEAKERS), use_key_shift_embed=True,
+                use_speed_embed=True, **{f"use_{v}_embed": True for v in CURVES})
+    cfg = make_experiment(work / "acoustic", over)
+    (Path(cfg["work_dir"]) / "spk_map.json").write_text(json.dumps(SPEAKERS))
+    acoustic = DiffSingerAcousticInfer(cfg, device="cuda")
+    segs = variance_inputs(written, acoustic.timestep)
+    launches_a, segs, rec, _ = drive_main_path(acoustic, work / "acoustic_out", segs,
+                                               "the written .ds")
+    implied = check.implied_launches(acoustic, n, n)
+    log(f"[ds variance -> acoustic] launches {launches_a}; expected "
+        f"{ {k: v for k, v in implied.items() if v} } (as phase 6), every other kernel 0")
+    check.check_launches(launches_a, implied, True, "the acoustic run of the written .ds")
+    worst = None
+    for args, kwargs, mel in rec["segment"]:
+        ref = acoustic.forward_model(args[0], seed=kwargs["seed"], _f32_module=True)
+        got = check.compare_mel(mel, ref)
+        check.require(got["mel_ok"], f"a segment's mel disagrees with the f32 path: {got}")
+        if worst is None or got["mel_rel_err"] > worst["mel_rel_err"]:
+            worst = got
+    log(f"[check variance -> acoustic] every segment's mel (speakers, curves, gender, velocity "
+        f"on) against the runner's f32 module path from the same noise, worst: mel "
+        f"max_abs_err={worst['mel_max_abs_err']:.6g} max_abs_ref={worst['mel_max_abs_ref']:.6g} "
+        f"(rel {worst['mel_rel_err']:.6g}) corr={worst['mel_corr']:.8f} (tolerance: "
+        f"{check.tolerance_text()})")
+    del acoustic
+    torch.cuda.empty_cache()
+    log(f"[done 7b] {time.perf_counter() - t_phase:.1f}s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1480,6 +1798,7 @@ def main(argv) -> int:
         wavenet, _, _, _ = run_configuration(
             "wavenet_ddpm", "wavenet_ddpm_b4_t2048", work / "wavenet", name_limit,
             {"K4": k4, "K2": k2, "K6": k6})
+        variance = run_variance_pipeline(work / "pipeline", name_limit)
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1499,7 +1818,8 @@ def main(argv) -> int:
         dict(name="wavenet_block", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
-             launches=wavenet["wavenet_block"], library_ms=None, **k4),
+             launches=wavenet["wavenet_block"],
+             variance_path_launches=variance["wavenet_block"], library_ms=None, **k4),
         dict(name="mel_spectrogram", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",

@@ -618,6 +618,43 @@ def test_wavenet_denoiser_apply_on_card_matches_f32_module(cuda):
     _rel_close(got, ref, tol=0.05, min_corr=0.999)
 
 
+@pytest.mark.parametrize("T", [256, 1024])
+@pytest.mark.parametrize("head,M,F,C,layers,cycle", [
+    ("pitch", 64, 1, 256, 20, 5), ("variances", 12, 4, 192, 10, 4),
+])
+def test_wavenet_block_at_variance_heads_matches_f32_module(cuda, head, M, F, C, layers, cycle,
+                                                            T):
+    """The variance model's heads at their shipped widths, B = 1: the pitch
+    head (spec [1, 1, T, 64], C 256, d up to 16) and the multi-variance head
+    ([1, 4, T, 12], C 192, d up to 8) through the kernel path, one K4 launch
+    a layer, against the f32 module, at the bar of the apply above."""
+    from xiaoicesing_io_tpu_torch.models.backbones import build_backbone
+    from xiaoicesing_io_tpu_torch.models.backbones.wavenet_cuda import (
+        wavenet_cond_projections, wavenet_denoiser_apply, wavenet_kernel_weights,
+    )
+
+    torch.manual_seed(T + C)
+    net = build_backbone(M, F, "wavenet", {"num_channels": C, "num_layers": layers,
+                                           "dilation_cycle_length": cycle},
+                         cond_dims=256).eval().to(cuda)
+    with torch.no_grad():
+        net.output_projection.weight.normal_(0.0, 0.05)
+    spec = torch.randn(1, F, T, M, device=cuda)
+    step = torch.tensor([412.0], device=cuda)
+    cond = torch.randn(1, T, 256, device=cuda)
+    with torch.no_grad():
+        ref = net(spec, step, cond)
+        projs = wavenet_cond_projections(net, cond)
+        assert all(p.is_contiguous() and p.data_ptr() % 16 == 0 for p in projs)
+        before = K4.launches
+        got = wavenet_denoiser_apply(net, spec, step, cond_projs=projs,
+                                     kernel_weights=wavenet_kernel_weights(net))
+        torch.cuda.synchronize()
+    assert K4.launches == before + layers
+    assert got.shape == spec.shape
+    _rel_close(got, ref, tol=0.05, min_corr=0.999)
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused STFT -> log-mel kernel.  f32 on both sides: against the plain
 # matrix-product DFT (f32, TF32 off) within 2e-3 nats, the bar at which the

@@ -258,7 +258,8 @@ for name in names:
 for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep",
              "ops.cuda.hifigan_resblock", "models.vocoders.nsf_fast", "bench", "bench.__main__",
              "bench.cells", "bench.check", "bench.experiment", "bench.flops", "bench.inputs",
-             "bench.reference", "bench.spread", "bench.trace"):
+             "bench.reference", "bench.spread", "bench.trace", "inference.variance",
+             "models.fastspeech.variance", "utils.spk_mix"):
     assert pkg.__name__ + "." + name in names, name
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -276,13 +277,19 @@ def test_entry_points_default_to_cuda(exp_dir):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     from xiaoicesing_io_tpu_torch import cli
+    from xiaoicesing_io_tpu_torch.config import variance_defaults
     from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
+    from xiaoicesing_io_tpu_torch.inference.variance import DiffSingerVarianceInfer
     from xiaoicesing_io_tpu_torch.models.vocoders.wrapper import NsfHifiGAN
 
     cfg = _port_cfg(exp_dir)
     cfg["vocoder_ckpt"] = str(exp_dir / "vocoder" / "model.ckpt")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DiffSingerAcousticInfer(cfg, load_vocoder=False)
+    vcfg = variance_defaults()
+    vcfg.update(work_dir=str(exp_dir), dictionary=str(DICT))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DiffSingerVarianceInfer(vcfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NsfHifiGAN(cfg)
     (exp_dir.parent / "root").mkdir(exist_ok=True)
@@ -292,15 +299,21 @@ def test_entry_points_default_to_cuda(exp_dir):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["infer", "acoustic", str(SAMPLE), "--exp", "exp",
                   "--work_dir", str(exp_dir.parent / "root"), "--mel"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["infer", "variance", str(SAMPLE), "--exp", "exp",
+                  "--work_dir", str(exp_dir.parent / "root"), "--predict", "dur"])
 
 
 def test_shipped_defaults_match_yaml():
-    """``configs/acoustic.json`` is the JAX package's base.yaml + acoustic.yaml."""
+    """``configs/acoustic.json`` is the JAX package's base.yaml + acoustic.yaml,
+    ``configs/variance.json`` its base.yaml + variance.yaml."""
     from xiaoicesing_io_tpu.config import load_config
-    from xiaoicesing_io_tpu_torch.config import acoustic_defaults
+    from xiaoicesing_io_tpu_torch.config import acoustic_defaults, variance_defaults
 
     assert dict(acoustic_defaults()) == dict(
         load_config(ROOT / "xiaoicesing_io_tpu/configs/acoustic.yaml"))
+    assert dict(variance_defaults()) == dict(
+        load_config(ROOT / "xiaoicesing_io_tpu/configs/variance.yaml"))
 
 
 @pytest.mark.parametrize("initial,stages", [(32, (0, 1)), (256, (0, 1)), (512, (0, 1))])

@@ -1,6 +1,7 @@
 """Command line of the port.
 
     python -m xiaoicesing_io_tpu_torch.cli infer acoustic song.ds --exp my_exp [--device cpu]
+    python -m xiaoicesing_io_tpu_torch.cli infer variance song.ds --exp var_exp [--predict dur]
     python -m xiaoicesing_io_tpu_torch.cli val_vocoder a.wav b.wav --config cfg.yaml [--out DIR]
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
 
@@ -8,8 +9,11 @@
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
 ``model_ckpt_steps_*.ckpt``; the config's ``vocoder_ckpt`` names the
 NSF-HiFiGAN ``model.ckpt`` (with its ``config.json`` beside it).
-``val_vocoder`` copy-synthesises wav files through the vocoder and scores
-them (mel MAE, PESQ*); ``vocode`` turns the ``.mel.npz`` that ``infer
+``infer variance`` predicts what each segment lacks (or what ``--predict``
+names: dur, pitch, energy, breathiness, voicing, tension) and writes the
+``.ds`` with the predictions beside the input.  ``val_vocoder``
+copy-synthesises wav files through the vocoder and scores them (mel MAE,
+PESQ*); ``vocode`` turns the ``.mel.npz`` that ``infer
 acoustic --mel`` writes into a wav.  Every command runs on CUDA unless
 ``--device`` names another device.
 """
@@ -67,6 +71,15 @@ def infer_acoustic(args) -> None:
     params = load_ds(args.proj)
     if args.key != 0:
         params = _trans_key(params, args.key)
+    if args.gender is not None:
+        assert -1.0 <= args.gender <= 1.0, "--gender must be in [-1, 1]"
+        for seg in params:
+            seg["gender"] = args.gender
+    if args.spk:
+        from .utils.spk_mix import parse_commandline_spk_mix
+
+        for seg in params:
+            seg["spk_mix"] = parse_commandline_spk_mix(args.spk)
     cfg = load_config(None, exp_name=exp, work_dir_root=args.work_dir, infer=True)
     migrate_sampling_keys(cfg, depth=args.depth, steps=args.steps)
     runner = DiffSingerAcousticInfer(cfg, load_vocoder=not args.mel, ckpt_steps=args.ckpt,
@@ -74,6 +87,35 @@ def infer_acoustic(args) -> None:
     out_dir = pathlib.Path(args.out) if args.out else pathlib.Path(args.proj).parent
     runner.run_inference(params, out_dir=out_dir, title=args.title or pathlib.Path(args.proj).stem,
                          num_runs=args.num, seed=args.seed, save_mel=args.mel)
+
+
+def infer_variance(args) -> None:
+    from .compat import migrate_sampling_keys
+    from .config import load_config
+    from .inference.acoustic import load_ds
+    from .inference.variance import DiffSingerVarianceInfer
+
+    exp = _find_exp(args.exp, args.work_dir)
+    params = load_ds(args.proj)
+    if args.key != 0:
+        params = _trans_key(params, args.key)
+    if args.expr is not None:
+        assert 0.0 <= args.expr <= 1.0, "--expr must be in [0, 1]"
+        for seg in params:
+            seg["expr"] = args.expr
+    cfg = load_config(None, exp_name=exp, work_dir_root=args.work_dir, infer=True)
+    migrate_sampling_keys(cfg, steps=args.steps)
+    if args.spk:
+        from .utils.spk_mix import parse_commandline_spk_mix
+
+        mix = parse_commandline_spk_mix(args.spk)
+        for seg in params:  # the token-level and the frame-level mix
+            seg["ph_spk_mix"] = seg["spk_mix"] = mix
+    runner = DiffSingerVarianceInfer(cfg, predictions=set(args.predict), ckpt_steps=args.ckpt,
+                                     device=args.device)
+    out_dir = pathlib.Path(args.out) if args.out else pathlib.Path(args.proj).parent
+    runner.run_inference(params, out_dir=out_dir, title=args.title or pathlib.Path(args.proj).stem,
+                         num_runs=args.num, seed=args.seed)
 
 
 def val_vocoder(args) -> None:
@@ -146,12 +188,35 @@ def build_parser() -> argparse.ArgumentParser:
     ac.add_argument("--title", default=None)
     ac.add_argument("--num", type=int, default=1, help="number of runs")
     ac.add_argument("--key", type=int, default=0, help="transpose key in semitones")
+    ac.add_argument("--spk", default=None, help="speaker mix, e.g. 'a|b:0.5'")
+    ac.add_argument("--gender", type=float, default=None,
+                    help="static formant shift (gender) in [-1, 1]")
     ac.add_argument("--seed", type=int, default=-1, help="-1: fresh entropy per run")
     ac.add_argument("--depth", type=float, default=None)
     ac.add_argument("--steps", type=int, default=None)
     ac.add_argument("--mel", action="store_true", help="save the mel instead of the waveform")
     ac.add_argument("--device", default=None, help="torch device (default: cuda)")
     ac.set_defaults(func=infer_acoustic)
+
+    va = infer_sub.add_parser("variance", help="Variance inference: .ds -> .ds with predictions")
+    va.add_argument("proj", help="the .ds file")
+    va.add_argument("--exp", required=True, help="experiment name or unique prefix")
+    va.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+    va.add_argument("--ckpt", type=int, default=None, help="checkpoint step (default: latest)")
+    va.add_argument("--predict", action="append", default=[],
+                    help="dur / pitch / energy / breathiness / voicing / tension (repeatable; "
+                         "none: predict what each segment lacks)")
+    va.add_argument("--spk", default=None, help="speaker mix, e.g. 'a|b:0.5'")
+    va.add_argument("--out", default=None, help="output directory (default: beside the .ds)")
+    va.add_argument("--title", default=None)
+    va.add_argument("--num", type=int, default=1, help="number of runs")
+    va.add_argument("--key", type=int, default=0, help="transpose key in semitones")
+    va.add_argument("--expr", type=float, default=None,
+                    help="static expressiveness in [0, 1] (the pitch retake mix)")
+    va.add_argument("--seed", type=int, default=-1, help="-1: fresh entropy per run")
+    va.add_argument("--steps", type=int, default=None)
+    va.add_argument("--device", default=None, help="torch device (default: cuda)")
+    va.set_defaults(func=infer_variance)
 
     vv = sub.add_parser("val_vocoder", help="Vocoder copy-synthesis evaluation on wav files")
     vv.add_argument("wavs", nargs="+", help="wav files")

@@ -5,10 +5,12 @@ Same semantics as the JAX package's ``config.py`` for inference: recursive
 merged in.  (Training's ``reset`` and ``key=value`` overrides are not ported
 yet.)
 
-PyYAML is imported only when a ``.yaml`` file is parsed.  The acoustic
-defaults (``base.yaml`` + ``acoustic.yaml`` merged) ship as
-``configs/acoustic.json``, so the port loads them where PyYAML is absent;
-``base_config: [acoustic.yaml]`` resolves to that file.
+PyYAML is imported only when a ``.yaml`` file is parsed.  The acoustic and
+variance defaults (``base.yaml`` merged with ``acoustic.yaml`` or
+``variance.yaml``) ship as ``configs/acoustic.json`` and
+``configs/variance.json``, so the port loads them where PyYAML is absent;
+``base_config: [acoustic.yaml]`` resolves to the first file and
+``[variance.yaml]`` to the second.
 """
 
 from __future__ import annotations
@@ -144,3 +146,8 @@ def load_config(
 def acoustic_defaults() -> Config:
     """The shipped acoustic configuration (``base.yaml`` + ``acoustic.yaml``)."""
     return load_config(BUILTIN_CONFIG_DIR / "acoustic.json")
+
+
+def variance_defaults() -> Config:
+    """The shipped variance configuration (``base.yaml`` + ``variance.yaml``)."""
+    return load_config(BUILTIN_CONFIG_DIR / "variance.json")

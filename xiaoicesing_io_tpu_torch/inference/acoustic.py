@@ -21,8 +21,15 @@ read: no config key switches a kernel off.  A DDPM core samples from depth
 at speedup ``diff_speedup``, a rectified-flow core with
 ``sampling_algorithm`` over ``sampling_steps``.
 
-Not ported yet (``NotImplementedError``): speaker mixes, variance embeddings,
-and key-shift (gender) and speed (velocity) inputs.
+The encoder's optional inputs are read as the JAX runner reads them: with
+``use_spk_id`` the segment's speaker mix (``inference/base.py``) summed over
+the speaker embeddings; with ``use_{energy,breathiness,voicing,tension}_embed``
+each curve resampled to the frame grid; with ``use_key_shift_embed`` the
+``gender`` value or curve mapped onto ``augmentation_args.
+random_pitch_shifting.range``; with ``use_speed_embed`` the ``velocity``
+curve clipped to ``random_time_stretching.range`` (1 without one).  Frame
+curves are zero-padded to the bucket, a dynamic speaker mix edge-padded.  A
+config without these keys runs exactly the plain path.
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ from ..utils import fresh_seed, generator_from_seed, resolve_device
 from ..utils.curves import cross_fade, resample_align_curve
 from ..utils.phonemes import PhonemeDictionary, locate_dictionary
 from ..utils.text_encoder import TokenTextEncoder
-from .base import BaseSVSInfer
+from .base import BaseSVSInfer, speaker_mix_embed
 
 BUCKET = 256  # frame bucket size for padding
 
@@ -71,19 +78,12 @@ def find_checkpoint(work_dir, ckpt_steps: Optional[int] = None) -> Path:
     return ckpts[-1]
 
 
-def _unsupported(cfg) -> List[str]:
-    keys = [f"use_{v}_embed" for v in VARIANCE_CHECKLIST]
-    keys += ["use_key_shift_embed", "use_speed_embed"]
-    return [k for k in keys if cfg.get(k, False)]
-
-
 class DiffSingerAcousticInfer(BaseSVSInfer):
     def __init__(self, cfg, load_vocoder: bool = True, ckpt_steps=None, device=None):
         super().__init__(cfg)
         self.device = resolve_device(device)
-        unsupported = _unsupported(cfg)
-        if unsupported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unsupported)}")
+        self.variances_to_embed = [v for v in VARIANCE_CHECKLIST
+                                   if cfg.get(f"use_{v}_embed", False)]
         phdict = PhonemeDictionary.load(
             locate_dictionary(cfg.get("dictionary"), cfg.get("work_dir"))
         )
@@ -125,6 +125,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
     # -- preprocessing --------------------------------------------------------
 
     def preprocess_input(self, param: dict, idx: int = 0) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
         batch: Dict[str, np.ndarray] = {}
         summary = OrderedDict()
         tokens = np.asarray([self.ph_encoder.encode(param["ph_seq"])], np.int64)
@@ -141,12 +142,47 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         summary["frames"] = length
         summary["seconds"] = "%.2f" % (length * self.timestep)
 
-        batch["f0"] = resample_align_curve(
-            np.array(param["f0_seq"].split(), np.float32),
-            original_timestep=float(param["f0_timestep"]),
-            target_timestep=self.timestep,
-            align_length=length,
-        )[None]
+        if cfg.get("use_spk_id", False):
+            batch["spk_mix_id"], batch["spk_mix_value"] = self.load_speaker_mix(
+                param_src=param, summary_dst=summary, mix_mode="frame", mix_length=length)
+
+        def curve(key, timestep_key=None):
+            return resample_align_curve(
+                np.array(param[key].split(), np.float32),
+                original_timestep=float(param[timestep_key or f"{key}_timestep"]),
+                target_timestep=self.timestep,
+                align_length=length,
+            )
+
+        batch["f0"] = curve("f0_seq", "f0_timestep")[None]
+        for v_name in self.variances_to_embed:
+            batch[v_name] = curve(v_name)[None]
+            summary[v_name] = "manual"
+
+        if cfg.get("use_key_shift_embed", False):
+            shift_min, shift_max = cfg["augmentation_args"]["random_pitch_shifting"]["range"]
+            gender = param.get("gender", 0.0)
+            if gender is None:
+                gender = 0.0
+            if isinstance(gender, (int, float, bool)):
+                summary["gender"] = f"static({gender:.3f})"
+                val = gender * shift_max if gender >= 0 else gender * abs(shift_min)
+                batch["key_shift"] = np.full((1, length), val, np.float32)
+            else:
+                summary["gender"] = "dynamic"
+                gender_seq = curve("gender")
+                mask = gender_seq >= 0
+                key_shift = gender_seq * (mask * shift_max + (1 - mask) * abs(shift_min))
+                batch["key_shift"] = np.clip(key_shift, shift_min, shift_max)[None]
+
+        if cfg.get("use_speed_embed", False):
+            if param.get("velocity") is None:
+                summary["velocity"] = "default"
+                batch["speed"] = np.full((1, length), 1.0, np.float32)
+            else:
+                summary["velocity"] = "manual"
+                speed_min, speed_max = cfg["augmentation_args"]["random_time_stretching"]["range"]
+                batch["speed"] = np.clip(curve("velocity"), speed_min, speed_max)[None]
         print(f"[{idx}]\t" + ", ".join(f"{k}: {v}" for k, v in summary.items()))
         return batch
 
@@ -155,18 +191,27 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
     @torch.no_grad()
     def synthesize(self, tokens, mel2ph, f0, noise=None,
                    generator: Optional[torch.Generator] = None,
-                   timings: Optional[dict] = None) -> torch.Tensor:
+                   timings: Optional[dict] = None, key_shift=None, speed=None,
+                   spk_mix_id=None, spk_mix_value=None, variances=None,
+                   _f32_module: bool = False) -> torch.Tensor:
         """Tensors on the runner's device -> masked mel ``[B, T, M]`` (value
         domain).  ``noise`` is the sampler's start noise ``[B, 1, T, M]``;
         drawn from ``generator`` when None.  ``timings``, when given, receives
         host seconds of the condition + aux stage and of the sampler (both
-        ended by a device synchronise)."""
+        ended by a device synchronise).  ``key_shift``, ``speed`` ``[B, T]``,
+        the speaker mix (ids ``[B, 1, N]``, proportions ``[B, T|1, N]``) and
+        ``variances`` (name -> ``[B, T]``) are the encoder's optional inputs.
+        ``_f32_module`` runs the denoiser's f32 module in place of its kernel
+        path (the reference that ``chip_smoke.py`` holds the kernels to)."""
         cfg = self.cfg
         model = self.model
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
             else (lambda: None)
         t0 = _now()
-        cond = model.condition(tokens, mel2ph, f0)
+        spk_mix_embed = None if spk_mix_id is None \
+            else speaker_mix_embed(model.fs2.spk_embed.weight, spk_mix_id, spk_mix_value)
+        cond = model.condition(tokens, mel2ph, f0, key_shift=key_shift, speed=speed,
+                               spk_mix_embed=spk_mix_embed, variances=variances)
         mask = (mel2ph > 0)[:, :, None]
         shape = (cond.shape[0], 1, cond.shape[1], cfg["audio_num_mel_bins"])
         x_src = None
@@ -177,7 +222,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
             timings["cond_aux"] = _now() - t0
             t0 = _now()
 
-        if self.use_kernels:
+        if self.use_kernels and not _f32_module:
             backbone = model.backbone
             cd = self.compute_dtype
             if self.backbone_type == "wavenet":
@@ -219,9 +264,11 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         return mel
 
     def forward_model(self, batch: Dict[str, np.ndarray], seed: int = 0,
-                      noise: Optional[np.ndarray] = None) -> np.ndarray:
+                      noise: Optional[np.ndarray] = None,
+                      _f32_module: bool = False) -> np.ndarray:
         """Pad to a frame bucket, synthesise, crop.  ``noise`` (``[1, 1,
-        bucket, M]``) replaces the start noise drawn from ``seed``."""
+        bucket, M]``) replaces the start noise drawn from ``seed``;
+        ``_f32_module`` as in :meth:`synthesize`."""
         length = batch["mel2ph"].shape[1]
         padded_len = _bucket(length)
         dev = self.device
@@ -233,12 +280,28 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), dtype=torch.long, device=dev)
         mel2ph = torch.as_tensor(pad(batch["mel2ph"]), dtype=torch.long, device=dev)
         f0 = torch.as_tensor(pad(batch["f0"]), dtype=torch.float32, device=dev)
+        inputs = {}
+        for k in ("key_shift", "speed"):
+            if k in batch:
+                inputs[k] = torch.as_tensor(pad(batch[k]), dtype=torch.float32, device=dev)
+        if self.variances_to_embed:
+            inputs["variances"] = {
+                v: torch.as_tensor(pad(batch[v]), dtype=torch.float32, device=dev)
+                for v in self.variances_to_embed}
+        if "spk_mix_id" in batch:
+            value = np.asarray(batch["spk_mix_value"], np.float32)
+            if value.shape[1] == length:  # a dynamic mix: its last proportions go on
+                value = np.pad(value, [(0, 0), (0, padded_len - length), (0, 0)], mode="edge")
+            inputs["spk_mix_id"] = torch.as_tensor(np.asarray(batch["spk_mix_id"]),
+                                                   dtype=torch.long, device=dev)
+            inputs["spk_mix_value"] = torch.as_tensor(value, device=dev)
         generator = None
         if noise is not None:
             noise = torch.tensor(np.asarray(noise, np.float32), device=dev)
         else:
             generator = generator_from_seed(seed, dev)
-        mel = self.synthesize(tokens, mel2ph, f0, noise=noise, generator=generator)
+        mel = self.synthesize(tokens, mel2ph, f0, noise=noise, generator=generator,
+                              _f32_module=_f32_module, **inputs)
         return mel[:, :length].cpu().numpy()
 
     def run_vocoder(self, mel: np.ndarray, f0: np.ndarray,

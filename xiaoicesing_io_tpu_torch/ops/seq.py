@@ -3,6 +3,8 @@
 * :func:`length_regulator` -- token durations -> 1-based frame-to-token map
   ``mel2ph`` with a fixed output length (0 = no phoneme);
 * :func:`mel2ph_to_dur` -- the inverse count;
+* :func:`rhythm_regulator` -- phoneme durations rescaled so that each word's
+  total matches the given word duration;
 * :func:`gather_frames` -- token states to frame level, ``mel2ph == 0``
   gathering a zero vector.
 """
@@ -30,6 +32,20 @@ def mel2ph_to_dur(mel2ph: torch.Tensor, t_txt: int) -> torch.Tensor:
     dur = torch.zeros(B, t_txt + 1, dtype=torch.long, device=mel2ph.device)
     dur.scatter_add_(1, mel2ph.long(), torch.ones_like(mel2ph, dtype=torch.long))
     return dur[:, 1:]
+
+
+def rhythm_regulator(ph_dur: torch.Tensor, ph2word: torch.Tensor, word_dur: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Scale ``ph_dur`` ``[B, T_ph]`` so that each word's phonemes sum to its
+    ``word_dur`` ``[B, T_w]``; ``ph2word`` is the 1-based word of each
+    phoneme (0 = padding).  -> int64 rounded durations ``[B, T_ph]``."""
+    ph2word = ph2word.long()
+    ph_dur = ph_dur.float() * (ph2word > 0)
+    word_dur_in = torch.zeros(ph_dur.shape[0], word_dur.shape[1] + 1, device=ph_dur.device)
+    word_dur_in.scatter_add_(1, ph2word, ph_dur)
+    alpha_w = word_dur.float() / torch.clamp(word_dur_in[:, 1:], min=eps)
+    alpha_ph = torch.gather(F.pad(alpha_w, (1, 0)), 1, ph2word)
+    return torch.round(ph_dur * alpha_ph).long()
 
 
 def gather_frames(encoder_out: torch.Tensor, mel2ph: torch.Tensor) -> torch.Tensor:

@@ -167,6 +167,56 @@ def acoustic_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     return out
 
 
+def variance_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """A ``VarianceModel`` param tree -> the port ``VarianceModel`` state dict."""
+    p = _root(params)
+    fs2 = p["fs2"]
+    out: Dict[str, torch.Tensor] = {"fs2.txt_embed.weight": _t(fs2["txt_embed"]["embedding"])}
+    out.update(fs2_encoder_state_dict(fs2["encoder"], "fs2.encoder", cfg.get("enc_layers", 4)))
+    for name in ("onset_embed", "midi_embed"):
+        if name in fs2:
+            out[f"fs2.{name}.weight"] = _t(fs2[name]["embedding"])
+    for name in ("word_dur_embed", "ph_dur_embed"):
+        if name in fs2:
+            _linear(out, f"fs2.{name}", fs2[name])
+    if "dur_predictor" in fs2:
+        dp = fs2["dur_predictor"]
+        for i in range(cfg.get("dur_prediction_args", {}).get("num_layers", 5)):
+            _conv(out, f"fs2.dur_predictor.conv.{i}.1", dp[f"conv_{i}"])
+            _layer_norm(out, f"fs2.dur_predictor.conv.{i}.3", dp[f"ln_{i}"])
+        _linear(out, "fs2.dur_predictor.linear", dp["linear"])
+    for name in ("spk_embed", "pitch_retake_embed"):
+        if name in p:
+            out[f"{name}.weight"] = _t(p[name]["embedding"])
+    for name in ("base_pitch_embed", "delta_pitch_embed", "pitch_embed"):
+        if name in p:
+            _linear(out, name, p[name])
+    for v in _VARIANCES:
+        if f"variance_embed_{v}" in p:
+            _linear(out, f"variance_embeds.{v}", p[f"variance_embed_{v}"])
+    # DDPM names its nets denoise_fn, rectified flow velocity_fn
+    net = "denoise_fn" if cfg.get("diffusion_type", "ddpm") == "ddpm" else "velocity_fn"
+    for head, tree, default_layers in (("pitch", "pitch_backbone", 20),
+                                       ("variances", "variance_backbone", 10)):
+        if tree in p:
+            args = cfg.get(f"{head}_prediction_args", {})
+            predictor = "pitch_predictor" if head == "pitch" else "variance_predictor"
+            out.update(_BACKBONES[args.get("backbone_type", "wavenet")](
+                p[tree], f"{predictor}.{net}",
+                args.get("backbone_args", {}).get("num_layers", default_layers)))
+    if "melody_encoder" in p:
+        me = p["melody_encoder"]
+        _linear(out, "melody_encoder.note_midi_embed", me["note_midi_embed"])
+        _linear(out, "melody_encoder.note_dur_embed", me["note_dur_embed"])
+        if "note_glide_embed" in me:
+            out["melody_encoder.note_glide_embed.weight"] = _t(me["note_glide_embed"]["embedding"])
+        out.update(fs2_encoder_state_dict(
+            me["encoder"], "melody_encoder.encoder",
+            cfg.get("melody_encoder_args", {}).get("enc_layers", 4)))
+        _linear(out, "melody_encoder.out_proj", me["out_proj"])
+    return out
+
+
 def nsf_hifigan_state_dict_from_jax(params: dict, vcfg) -> Dict[str, torch.Tensor]:
     """A NSF-HiFiGAN ``Generator`` param tree -> the port ``Generator`` state dict."""
     p = _root(params)
