@@ -108,6 +108,22 @@ Phases, each printed on its own line:
      process of its own: every cell of ``BENCHMARK.json`` with its checks and
      traced window, and the WaveNet margin line; it must exit 0 and end with
      its headline.  Its wall time is printed.
+ 12. (after phase 8, on the experiments of phases 6 and 7b) evaluation over
+     binarized sets built from the sample ``.ds`` (10 items, written with
+     the port's ``IndexedDatasetBuilder``): ``evaluate_acoustic`` with
+     PESQ* on the LYNXNet experiment, each item's ground-truth mel the
+     runner's f32 module path from the evaluation's own seed, must launch
+     K1 6 x 20 and K2 and K6 three vocoder calls' worth (prediction, ground
+     truth, aux) an item and nothing else; each item's mel within the bars
+     of ``bench/check.py`` of its ground truth, every reported number
+     finite, and one item run again with ``pad_frames_to`` (its collated
+     length grown to the runner's bucket) must give the same PESQ* within
+     1e-6.  ``evaluate_variance`` on the variance experiment, the set's
+     pitch the f32 modules' sample from the evaluation's own noise, must
+     launch K4 20 x 20 an item (the pitch head) and nothing else, with
+     ``pitch_acc`` >= 0.999 and the duration figures in [0, 1].  Then the
+     DDSP wrapper on the card against the CPU (a TorchScript stand-in).
+     Each evaluation's seconds and items/s are printed.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -182,7 +198,8 @@ calls, K4's the mean over its four dilations, K6's the sum over the 27
 units of stages 2-4; ``launches`` are wrapper calls in the ``.ds`` run of
 the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
 for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
-K8).  The last line is ``{"ok": true,
+K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12).
+The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -1501,12 +1518,13 @@ def variance_inputs(segs, timestep: float) -> list:
     return out
 
 
-def run_variance_pipeline(work: Path, name_limit: str) -> dict:
+def run_variance_pipeline(work: Path, name_limit: str) -> tuple:
     """Phase 7b: ``infer variance`` on the bare score of the sample song
     (durations, pitch and curves removed; a static two-speaker mix) at full
     width on the card, then the written ``.ds`` through ``infer acoustic``
     with every optional input (variance curves, a dynamic speaker mix,
-    gender, velocity).  Returns the variance song's launch counts."""
+    gender, velocity).  Returns the variance song's launch counts and the
+    variance experiment's config."""
     import torch
 
     from xiaoicesing_io_tpu_torch.bench import cells, check
@@ -1516,8 +1534,8 @@ def run_variance_pipeline(work: Path, name_limit: str) -> dict:
     from xiaoicesing_io_tpu_torch.utils.spk_mix import parse_commandline_spk_mix
 
     t_phase = t0 = time.perf_counter()
-    runner = DiffSingerVarianceInfer(make_variance_experiment(work / "variance", "reflow"),
-                                     device="cuda")
+    variance_cfg = make_variance_experiment(work / "variance", "reflow")
+    runner = DiffSingerVarianceInfer(variance_cfg, device="cuda")
     log(f"[setup variance] random full-width variance model saved and loaded in "
         f"{time.perf_counter() - t0:.1f}s; heads on K4: {sorted(runner.kernel_weights)}")
     drop = {"ph_dur", "f0_seq", "f0_timestep", *CURVES, *(f"{v}_timestep" for v in CURVES)}
@@ -1604,7 +1622,7 @@ def run_variance_pipeline(work: Path, name_limit: str) -> dict:
     del acoustic
     torch.cuda.empty_cache()
     log(f"[done 7b] {time.perf_counter() - t_phase:.1f}s")
-    return launches
+    return launches, variance_cfg
 
 
 # ---------------------------------------------------------------------------
@@ -1719,6 +1737,261 @@ def run_copy_synthesis(cfg, ds_wav: Path, work: Path, name_limit: str, per_call:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# evaluation over binarized sets: evaluate_acoustic (K1; K2, K6), evaluate_variance (K4)
+# ---------------------------------------------------------------------------
+
+PITCH_ACC_MIN = 0.999   # K4's bf16 pitch against the f32 modules' at 0.5 semitones
+PESQ_SAME = 1e-6        # one item with and without pad_frames_to: the host's rounding only
+
+
+def write_set(directory: Path, prefix: str, items: list) -> None:
+    """A binarized set as the binarizers write it: the items through the
+    port's ``IndexedDatasetBuilder`` and the ``.meta`` pickle (frame counts,
+    names)."""
+    import pickle
+
+    from xiaoicesing_io_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
+
+    directory.mkdir(parents=True, exist_ok=True)
+    builder = IndexedDatasetBuilder(directory, prefix)
+    for item in items:
+        builder.add_item(item)
+    builder.finalize()
+    with open(directory / f"{prefix}.meta", "wb") as f:
+        pickle.dump({"lengths": [len(it["mel2ph"]) for it in items],
+                     "names": [f"segment{i}" for i in range(len(items))]}, f)
+
+
+def acoustic_eval_set(cfg, work: Path, seed: int) -> list:
+    """The sample ``.ds``'s segments as a ``valid`` set (tokens, ``mel2ph``
+    and f0 from the runner's ``preprocess_input``) whose ground-truth mel is
+    the runner's f32 module path on the collated item from the seed the
+    evaluation gives it (``seed + i``).  Returns the items and those mels at
+    the collated length."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.data.dataset import AcousticDataset
+    from xiaoicesing_io_tpu_torch.eval.copy_synthesis import _batch_from_item
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer, load_ds
+
+    runner = DiffSingerAcousticInfer(cfg, load_vocoder=False, device="cuda")
+    items = []
+    for i, seg in enumerate(load_ds(ROOT / SAMPLE)):
+        b = runner.preprocess_input(seg, idx=i)
+        items.append({"tokens": b["tokens"][0], "mel2ph": b["mel2ph"][0], "f0": b["f0"][0],
+                      "mel": np.zeros((b["mel2ph"].shape[1], cfg["audio_num_mel_bins"]),
+                                      np.float32)})
+    write_set(work / "draft", "valid", items)
+    draft = AcousticDataset(work / "draft", "valid", cfg)
+    mels = []
+    for i, item in enumerate(items):
+        batch = _batch_from_item(cfg, runner, draft.collate([i]))
+        mel = runner.forward_model(batch, seed=seed + i, _f32_module=True)[0]
+        item["mel"] = mel[:len(item["mel2ph"])]
+        mels.append(mel)
+    draft._ds.close()
+    write_set(Path(cfg["binary_data_dir"]), "valid", items)
+    del runner
+    return items, mels
+
+
+def variance_eval_set(cfg, work: Path) -> None:
+    """The sample ``.ds``'s segments as a variance ``valid`` set (the
+    runner's ``preprocess_input`` with durations and pitch; ``uv`` from the
+    ``.ds``'s f0) whose ``pitch`` is the f32 modules' sample under the
+    evaluation's condition from the noise the evaluation draws (item ``i``'s
+    generator)."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.data.dataset import VarianceDataset
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.inference.variance import DiffSingerVarianceInfer
+    from xiaoicesing_io_tpu_torch.training.variance import sample_variance_inference
+    from xiaoicesing_io_tpu_torch.utils import generator_from_seed
+    from xiaoicesing_io_tpu_torch.utils.curves import interp_f0, resample_align_curve
+
+    runner = DiffSingerVarianceInfer(cfg, device="cuda")
+    items = []
+    for i, seg in enumerate(load_ds(ROOT / SAMPLE)):
+        b = runner.preprocess_input(seg, idx=i, load_dur=True, load_pitch=True)
+        T = b["mel2ph"].shape[1]
+        f0 = resample_align_curve(np.array(seg["f0_seq"].split(), np.float32),
+                                  float(seg["f0_timestep"]), runner.timestep, T)
+        item = {k: b[k][0] for k in ("tokens", "ph_dur", "midi", "ph2word", "mel2ph",
+                                     "note_midi", "note_rest", "note_dur", "note_glide",
+                                     "mel2note", "base_pitch", "pitch")}
+        item.update(uv=interp_f0(f0)[1], spk_id=0,
+                    **{v: np.zeros(T, np.float32) for v in runner.model.variance_prediction_list})
+        items.append(item)
+    write_set(work / "draft_variance", "valid", items)
+    draft = VarianceDataset(work / "draft_variance", "valid", cfg)
+    for i, item in enumerate(items):
+        pitch, _ = sample_variance_inference(
+            cfg, runner.model, runner.core, runner.normalizers, draft.collate([i]),
+            generator=generator_from_seed(i, runner.device), _f32_module=True)
+        item["pitch"] = pitch[0, :len(item["mel2ph"])].cpu().numpy()
+    draft._ds.close()
+    write_set(Path(cfg["binary_data_dir"]), "valid", items)
+    del runner
+
+
+def check_ddsp(work: Path) -> None:
+    """The DDSP wrapper on the card: a TorchScript stand-in for a pc-ddsp
+    archive (mel ``[B, T, M]`` and f0 -> signal) with its ``config.yaml``,
+    loaded onto the card, against the same archive on the CPU."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.models.vocoders import get_vocoder_cls
+
+    class Toy(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.proj = torch.nn.Linear(128, 512)
+
+        def forward(self, mel, f0):
+            frames = torch.tanh(self.proj(mel)) * torch.sin(f0 / 50.0)
+            return frames.reshape(mel.shape[0], -1), frames, (frames, frames)
+
+    work.mkdir(parents=True)
+    torch.manual_seed(0)
+    mel = torch.zeros(1, 4, 128)
+    torch.jit.trace(Toy(), (mel, torch.ones(1, 4, 1))).save(str(work / "model.pt"))
+    (work / "config.yaml").write_text(
+        "data:\n  sampling_rate: 44100\n  n_mels: 128\n  block_size: 512\n")
+    cfg = {"vocoder_ckpt": str(work / "model.pt"), "mel_base": "e", "hop_size": 512,
+           "audio_sample_rate": 44100, "audio_num_mel_bins": 128}
+    ddsp = get_vocoder_cls("DDSP")
+    rng = np.random.default_rng(0)
+    mel = (rng.standard_normal((200, 128)) - 4.0).astype(np.float32)
+    f0 = rng.uniform(100, 400, 200).astype(np.float32)
+    got = ddsp(cfg, device="cuda").spec2wav(mel, f0)
+    ref = ddsp(cfg, device="cpu").spec2wav(mel, f0)
+    err = float(np.abs(got - ref).max())
+    log(f"[eval ddsp] DDSP (TorchScript) on the card: {got.shape[0]} samples, max_abs_err "
+        f"{err:.3g} against the CPU (tolerance 1e-4)")
+    if got.shape != (200 * 512,) or not err <= 1e-4:
+        raise AssertionError("the DDSP wrapper on the card disagrees with the CPU")
+
+
+def run_evaluation(lynx_cfg, variance_cfg, work: Path, name_limit: str, per_call: dict) -> dict:
+    """Phase 12: ``evaluate_acoustic`` (with PESQ*) on the LYNXNet
+    experiment of phase 6 and ``evaluate_variance`` on the variance
+    experiment of phase 7b, over sets built from the sample ``.ds`` whose
+    ground truths are the f32 module paths' outputs from the evaluation's
+    own noise; the launch counters are zeroed just before each evaluation
+    and read just after.  Returns the launches of both."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config
+    from xiaoicesing_io_tpu_torch.eval.copy_synthesis import evaluate_acoustic, evaluate_variance
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
+
+    t_phase = time.perf_counter()
+    seed = 0
+    cfg = Config(lynx_cfg, binary_data_dir=str(work / "binary"))
+    items, f32_mels = acoustic_eval_set(cfg, work, seed)
+    n = len(f32_mels)
+    mels = []
+    forward = DiffSingerAcousticInfer.forward_model
+
+    def recorded(self, batch, seed=0, noise=None, _f32_module=False):
+        out = forward(self, batch, seed=seed, noise=noise, _f32_module=_f32_module)
+        mels.append(out[0])
+        return out
+
+    DiffSingerAcousticInfer.forward_model = recorded
+    try:
+        check.zero_launch_counts()
+        t0 = time.perf_counter()
+        report = evaluate_acoustic(cfg, "valid", seed=seed, with_pesq=True, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = check.launch_counts()
+    finally:
+        DiffSingerAcousticInfer.forward_model = forward
+    layers, steps = cfg["backbone_args"]["num_layers"], cfg["sampling_steps"]
+    expect = {name: 0 for name, _, _ in check.counters()}
+    expect["lynx_conv_module"] = layers * steps * n
+    for name, k in per_call.items():
+        expect[name] = 3 * k * n
+    log(f"[eval acoustic] {n} items: {seconds:.2f}s ({n / seconds:.4f} items/s); launches "
+        f"{launches}; expected lynx_conv_module {layers} layers x {steps} steps x {n}, per item "
+        f"3 vocoder calls (prediction, ground truth, aux) of {per_call}, every other kernel 0")
+    check.check_launches(launches, expect, True, "evaluate_acoustic")
+    worst = None
+    for mel, ref in zip(mels, f32_mels, strict=True):
+        got = check.compare_mel(mel, ref)
+        check.require(got["mel_ok"], f"an item's mel disagrees with its f32 ground truth: {got}")
+        if worst is None or got["mel_rel_err"] > worst["mel_rel_err"]:
+            worst = got
+    numbers = [v for it in report["items"] for k, v in it.items()
+               if isinstance(v, float) or k in ("pesq", "aux_pesq")]
+    numbers += [v for k, v in report.items() if k.startswith("mean_")]
+    check.require(all(v is not None and np.isfinite(v) for v in numbers),
+                  f"evaluate_acoustic reported a number that is not finite: {report}")
+    log(f"[eval acoustic] each item's mel (K1, bf16) against its f32 ground truth, worst: "
+        f"max_abs_err={worst['mel_max_abs_err']:.6g} max_abs_ref={worst['mel_max_abs_ref']:.6g}"
+        f" (rel {worst['mel_rel_err']:.6g}) corr={worst['mel_corr']:.8f} (tolerance: "
+        f"{check.tolerance_text()}); the NSF-HiFiGAN vocoder ran (no Griffin-Lim); "
+        + " ".join(f"{k}={v:.6f}" for k, v in report.items() if k.startswith("mean_"))
+        + f" diff_pesq_wins_items={report['diff_pesq_wins_items']}")
+
+    # item i again, alone (as the train set, with its seed), with pad_frames_to: the
+    # collated length grows to the runner's bucket, which stays
+    frames = [len(it["mel2ph"]) for it in items]
+    i = next(j for j, t in enumerate(frames) if -(-t // 128) % 2 == 1)
+    bucket = -(-frames[i] // 256) * 256
+    write_set(work / "binary", "train", [items[i]])
+    padded = evaluate_acoustic(cfg, "train", seed=seed + i, with_pesq=True,
+                               pad_frames_to=bucket, device="cuda")["items"][0]
+    plain = report["items"][i]
+    log(f"[eval acoustic] item {i} ({frames[i]} frames, collated {-(-frames[i] // 128) * 128}) "
+        f"again with pad_frames_to={bucket}: pesq {padded['pesq']:.9f} against "
+        f"{plain['pesq']:.9f}, wav_mcd_db {padded['wav_mcd_db']:.6f} against "
+        f"{plain['wav_mcd_db']:.6f} (tolerance {PESQ_SAME})")
+    check.require(abs(padded["pesq"] - plain["pesq"]) <= PESQ_SAME
+                  and abs(padded["aux_pesq"] - plain["aux_pesq"]) <= PESQ_SAME,
+                  "pad_frames_to changed the waveform scores")
+    torch.cuda.empty_cache()
+
+    vcfg = Config(variance_cfg, binary_data_dir=str(work / "variance_binary"))
+    variance_eval_set(vcfg, work)
+    layers = vcfg["pitch_prediction_args"]["backbone_args"]["num_layers"]
+    steps = vcfg["sampling_steps"]
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    vreport = evaluate_variance(vcfg, "valid", device="cuda")
+    torch.cuda.synchronize()
+    vseconds = time.perf_counter() - t0
+    vlaunches = check.launch_counts()
+    vexpect = {name: 0 for name, _, _ in check.counters()}
+    vexpect["wavenet_block"] = layers * steps * n
+    log(f"[eval variance] {n} items: {vseconds:.2f}s ({n / vseconds:.4f} items/s); launches "
+        f"{vlaunches}; expected wavenet_block {layers} layers x {steps} steps x {n} (the pitch "
+        f"head), every other kernel 0")
+    check.check_launches(vlaunches, vexpect, True, "evaluate_variance")
+    log(f"[eval variance] pitch_acc={vreport['pitch_acc']:.6f} (K4, bf16, against the f32 "
+        f"modules from the same noise at 0.5 semitones; tolerance >= {PITCH_ACC_MIN}) "
+        f"rhythm_corr={vreport['rhythm_corr']:.6f} ph_dur_acc={vreport['ph_dur_acc']:.6f} "
+        f"median_wordsum_rel_err={vreport['median_wordsum_rel_err']:.6f} "
+        f"n_words={vreport['n_words']}")
+    check.require(vreport["pitch_acc"] >= PITCH_ACC_MIN,
+                  "the pitch head on K4 disagrees with its f32 modules")
+    check.require(0.0 <= vreport["rhythm_corr"] <= 1.0 and 0.0 <= vreport["ph_dur_acc"] <= 1.0,
+                  f"duration figures out of [0, 1]: {vreport}")
+    check_ddsp(work / "ddsp")
+    log(f"[timing eval] card={name_limit} evaluate_acoustic items={n} seconds={seconds:.4f} "
+        f"items_per_s={n / seconds:.4f} evaluate_variance items={n} seconds={vseconds:.4f} "
+        f"items_per_s={n / vseconds:.4f}")
+    log(f"[done 12] {time.perf_counter() - t_phase:.1f}s")
+    torch.cuda.empty_cache()
+    return {k: launches[k] + vlaunches[k] for k in launches}
+
+
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
@@ -1798,8 +2071,9 @@ def main(argv) -> int:
         wavenet, _, _, _ = run_configuration(
             "wavenet_ddpm", "wavenet_ddpm_b4_t2048", work / "wavenet", name_limit,
             {"K4": k4, "K2": k2, "K6": k6})
-        variance = run_variance_pipeline(work / "pipeline", name_limit)
+        variance, variance_cfg = run_variance_pipeline(work / "pipeline", name_limit)
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
+        evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sweep = run_sampler_sweep(name_limit)
@@ -1810,16 +2084,19 @@ def main(argv) -> int:
         dict(name="lynx_conv_module", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/lynx_conv.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv.py:116",
-             launches=lynx["lynx_conv_module"], library_ms=None, **k1),
+             launches=lynx["lynx_conv_module"],
+             eval_path_launches=evaluation["lynx_conv_module"], library_ms=None, **k1),
         dict(name="fused_resblock_stage", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_stage.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_stage.py:120",
-             launches=lynx["fused_resblock_stage"], library_ms=None, **k2),
+             launches=lynx["fused_resblock_stage"],
+             eval_path_launches=evaluation["fused_resblock_stage"], library_ms=None, **k2),
         dict(name="wavenet_block", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
              launches=wavenet["wavenet_block"],
-             variance_path_launches=variance["wavenet_block"], library_ms=None, **k4),
+             variance_path_launches=variance["wavenet_block"],
+             eval_path_launches=evaluation["wavenet_block"], library_ms=None, **k4),
         dict(name="mel_spectrogram", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",
@@ -1839,7 +2116,8 @@ def main(argv) -> int:
         dict(name="resblock_unit", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_resblock.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_resblock.py:105",
-             launches=lynx["resblock_unit"], library_ms=None, **k6),
+             launches=lynx["resblock_unit"],
+             eval_path_launches=evaluation["resblock_unit"], library_ms=None, **k6),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

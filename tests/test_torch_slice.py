@@ -259,7 +259,9 @@ for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep",
              "ops.cuda.hifigan_resblock", "models.vocoders.nsf_fast", "bench", "bench.__main__",
              "bench.cells", "bench.check", "bench.experiment", "bench.flops", "bench.inputs",
              "bench.reference", "bench.spread", "bench.trace", "inference.variance",
-             "models.fastspeech.variance", "utils.spk_mix"):
+             "models.fastspeech.variance", "utils.spk_mix", "data", "data.hdf5",
+             "data.indexed_dataset", "data.dataset", "training.metrics", "training.variance",
+             "eval.copy_synthesis", "models.vocoders.ddsp"):
     assert pkg.__name__ + "." + name in names, name
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -302,6 +304,17 @@ def test_entry_points_default_to_cuda(exp_dir):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["infer", "variance", str(SAMPLE), "--exp", "exp",
                   "--work_dir", str(exp_dir.parent / "root"), "--predict", "dur"])
+    from xiaoicesing_io_tpu_torch.eval.copy_synthesis import evaluate_acoustic, evaluate_variance
+    from xiaoicesing_io_tpu_torch.models.vocoders.ddsp import DDSP
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_acoustic(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_variance(vcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["eval", "--exp", "exp", "--work_dir", str(exp_dir.parent / "root")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DDSP(cfg)
 
 
 def test_shipped_defaults_match_yaml():

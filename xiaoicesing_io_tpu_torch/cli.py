@@ -4,6 +4,7 @@
     python -m xiaoicesing_io_tpu_torch.cli infer variance song.ds --exp var_exp [--predict dur]
     python -m xiaoicesing_io_tpu_torch.cli val_vocoder a.wav b.wav --config cfg.yaml [--out DIR]
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
+    python -m xiaoicesing_io_tpu_torch.cli eval --exp my_exp [--dataset valid] [--pesq] [--json out.json]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
@@ -14,8 +15,11 @@ names: dur, pitch, energy, breathiness, voicing, tension) and writes the
 ``.ds`` with the predictions beside the input.  ``val_vocoder``
 copy-synthesises wav files through the vocoder and scores them (mel MAE,
 PESQ*); ``vocode`` turns the ``.mel.npz`` that ``infer
-acoustic --mel`` writes into a wav.  Every command runs on CUDA unless
-``--device`` names another device.
+acoustic --mel`` writes into a wav.  ``eval`` scores an experiment over its
+binarized ``valid`` (or ``train``) set: mel MAE and MCD of an acoustic model
+(``--pesq``: also the vocoded waveforms), duration and pitch accuracy of a
+variance model.  Every command runs on CUDA unless ``--device`` names another
+device.
 """
 
 from __future__ import annotations
@@ -174,6 +178,54 @@ def vocode(args) -> None:
     print(f"| save audio: {out_path}")
 
 
+def eval_cmd(args) -> None:
+    """The JAX package's ``eval`` command: one line an item and a summary
+    line (acoustic), or one summary line (variance); ``--json`` also writes
+    the whole report."""
+    import json
+
+    from .config import load_config
+
+    def dump(report):
+        if args.json_path:
+            p = pathlib.Path(args.json_path)
+            if p.parent != pathlib.Path("."):
+                p.parent.mkdir(parents=True, exist_ok=True)
+            p.write_text(json.dumps(report, indent=2))
+            print(f"| save report: {args.json_path}")
+
+    exp = _find_exp(args.exp, args.work_dir)
+    cfg = load_config(None, exp_name=exp, work_dir_root=args.work_dir, infer=True)
+    if "variance" in str(cfg.get("task_cls", "")).lower():
+        from .eval.copy_synthesis import evaluate_variance
+
+        report = evaluate_variance(cfg, dataset=args.dataset, limit=args.limit,
+                                   ckpt_steps=args.ckpt, device=args.device)
+        metrics = " ".join(f"{k}={report[k]:.4f}"
+                           for k in ("rhythm_corr", "ph_dur_acc", "pitch_acc") if k in report)
+        print(f"| step {report['step']} {report['dataset']} "
+              f"({report['items_evaluated']} items): {metrics}")
+        dump(report)
+        return
+    from .eval.copy_synthesis import evaluate_acoustic
+
+    report = evaluate_acoustic(cfg, dataset=args.dataset, limit=args.limit, seed=args.seed,
+                               with_pesq=args.with_pesq, ckpt_steps=args.ckpt,
+                               device=args.device)
+    for it in report["items"]:
+        aux = "" if it["aux_mae"] is None else f"  aux_mae={it['aux_mae']:.4f}"
+        pq = "" if it.get("pesq") is None else f"  pesq={it['pesq']:.2f}"
+        print(f"| {it['name']}: frames={it['frames']} "
+              f"mel_mae={it['mel_mae']:.4f} mcd={it['mcd_db']:.3f}dB{aux}{pq}")
+    aux = ("" if "mean_aux_mae" not in report
+           else f"  mean_aux_mae={report['mean_aux_mae']:.4f}")
+    pq = "" if "mean_pesq" not in report else f"  mean_pesq={report['mean_pesq']:.2f}"
+    print(f"| step {report['step']} {report['dataset']}: "
+          f"mean_mel_mae={report['mean_mel_mae']:.4f} "
+          f"mean_mcd={report['mean_mcd_db']:.3f}dB{aux}{pq}")
+    dump(report)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m xiaoicesing_io_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -241,6 +293,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed of the NSF source noise; -1: fresh entropy per run")
     vo.add_argument("--device", default=None, help="torch device (default: cuda)")
     vo.set_defaults(func=vocode)
+
+    ev = sub.add_parser("eval", help="Evaluate an experiment over its binarized set")
+    ev.add_argument("--exp", required=True, help="experiment name or unique prefix")
+    ev.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+    ev.add_argument("--dataset", default="valid", choices=["valid", "train"])
+    ev.add_argument("--limit", type=int, default=None, help="evaluate at most N items")
+    ev.add_argument("--seed", type=int, default=0)
+    ev.add_argument("--json", dest="json_path", default=None,
+                    help="also write the full report as JSON to this path")
+    ev.add_argument("--pesq", dest="with_pesq", action="store_true",
+                    help="also vocode predicted + GT mels and report waveform PESQ*")
+    ev.add_argument("--ckpt", type=int, default=None,
+                    help="evaluate a specific checkpoint step (default: latest)")
+    ev.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ev.set_defaults(func=eval_cmd)
     return parser
 
 

@@ -71,6 +71,46 @@ def build_variance_cores(cfg):
     return RectifiedFlow(t_start=0.0, time_scale_factor=cfg.get("time_scale_factor", 1000))
 
 
+# the dtypes of batch arrays as tensors (any other key: f32)
+BATCH_TYPES = {"tokens": torch.long, "ph2word": torch.long, "word_dur": torch.long,
+               "midi": torch.long, "ph_dur": torch.long, "mel2ph": torch.long,
+               "mel2note": torch.long, "note_dur": torch.long, "note_glide": torch.long,
+               "note_rest": torch.bool, "spk_mix_id": torch.long, "ph_spk_mix_id": torch.long,
+               "spk_ids": torch.long, "uv": torch.bool}
+
+
+def load_variance_model(cfg, vocab_size: int, ckpt_steps=None, device="cpu") -> VarianceModel:
+    """The variance model of ``cfg`` with the weights of the work dir's
+    latest (or ``ckpt_steps``') checkpoint, on ``device``, in eval mode."""
+    model = VarianceModel.from_config(cfg, vocab_size)
+    # reference Lightning checkpoints hold more than tensors
+    ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
+                      weights_only=False)
+    load_variance_state_dict(model, ckpt.get("state_dict", ckpt))
+    return model.to(device).eval()
+
+
+def head_kernel_weights(cfg, heads: Dict[str, torch.nn.Module], compute_dtype):
+    """Each WaveNet head's K4 weights (``wavenet_kernel_weights``), by head
+    name: the heads that run ``wavenet_denoiser_apply``."""
+    return {head: wavenet_kernel_weights(backbone, compute_dtype)
+            for head, backbone in heads.items()
+            if get_backbone_type(cfg, cfg.get(f"{head}_prediction_args", {})) == "wavenet"}
+
+
+def head_denoiser(backbone, cond, kernel_weights, compute_dtype):
+    """A head's denoiser ``(x, t) -> f32``: ``wavenet_denoiser_apply`` on
+    its prepared K4 weights (bf16 with the kernel on the card, f32 with its
+    plain version on the CPU), or the f32 module where ``kernel_weights`` is
+    None."""
+    if kernel_weights is None:
+        return lambda x, t: backbone(x, t, cond).float()
+    cond_projs = wavenet_cond_projections(backbone, cond, compute_dtype)
+    return lambda x, t: wavenet_denoiser_apply(
+        backbone, x, t, cond_projs=cond_projs, kernel_weights=kernel_weights,
+        compute_dtype=compute_dtype).float()
+
+
 class DiffSingerVarianceInfer(BaseSVSInfer):
     def __init__(self, cfg, predictions: Optional[set] = None, ckpt_steps=None, device=None):
         super().__init__(cfg)
@@ -80,11 +120,8 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
             locate_dictionary(cfg.get("dictionary"), cfg.get("work_dir"))
         )
         self.ph_encoder = TokenTextEncoder(phdict.phoneme_list)
-        model = VarianceModel.from_config(cfg, self.ph_encoder.vocab_size)
-        ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
-                          weights_only=False)
-        load_variance_state_dict(model, ckpt.get("state_dict", ckpt))
-        self.model = model.to(self.device).eval()
+        self.model = load_variance_model(cfg, self.ph_encoder.vocab_size, ckpt_steps,
+                                         self.device)
         self.core = build_variance_cores(cfg)
         self.normalizers = build_variance_normalizers(cfg)
         self.smooth_width = round(cfg["midi_smooth_width"] / self.timestep)
@@ -103,11 +140,7 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
 
         # each WaveNet head's kernel weights, prepared once
         self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.kernel_weights = {
-            head: wavenet_kernel_weights(backbone, self.compute_dtype)
-            for head, backbone in self.heads().items()
-            if get_backbone_type(cfg, cfg.get(f"{head}_prediction_args", {})) == "wavenet"
-        }
+        self.kernel_weights = head_kernel_weights(cfg, self.heads(), self.compute_dtype)
 
     def heads(self) -> Dict[str, torch.nn.Module]:
         """The denoisers of the model: ``pitch`` and ``variances`` by name."""
@@ -317,11 +350,6 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
                     out[k] = np.pad(v, pad)
         return out, T_s, T_ph
 
-    _TYPES = {"tokens": torch.long, "ph2word": torch.long, "word_dur": torch.long,
-              "midi": torch.long, "ph_dur": torch.long, "mel2ph": torch.long,
-              "mel2note": torch.long, "note_dur": torch.long, "note_glide": torch.long,
-              "note_rest": torch.bool, "spk_mix_id": torch.long, "ph_spk_mix_id": torch.long}
-
     @torch.no_grad()
     def forward_model(self, batch, flags: Tuple[bool, bool, bool], seed: int = 0,
                       noise: Optional[Dict[str, np.ndarray]] = None,
@@ -337,7 +365,7 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
         batch, T_s_real, T_ph_real = self._pad_batch(batch)
         dev = self.device
         tensors = {k: None if v is None else torch.as_tensor(
-            np.asarray(v), dtype=self._TYPES.get(k, torch.float32), device=dev)
+            np.asarray(v), dtype=BATCH_TYPES.get(k, torch.float32), device=dev)
             for k, v in batch.items()}
         dur, pitch, variances = self._forward_padded(tensors, flags, seed, noise or {},
                                                      _f32_module)
@@ -404,19 +432,9 @@ class DiffSingerVarianceInfer(BaseSVSInfer):
         drawn from the segment's seed and the head's ``salt``); returns the
         model-domain ``x``."""
         cfg, dev = self.cfg, self.device
-        backbone = self.heads()[head]
-        if head in self.kernel_weights and not f32_module:
-            cd = self.compute_dtype
-            cond_projs = wavenet_cond_projections(backbone, cond, cd)
-            weights = self.kernel_weights[head]
-
-            def denoise_fn(x, t):
-                return wavenet_denoiser_apply(backbone, x, t, cond_projs=cond_projs,
-                                              kernel_weights=weights, compute_dtype=cd).float()
-        else:
-            def denoise_fn(x, t):
-                return backbone(x, t, cond).float()
-
+        denoise_fn = head_denoiser(self.heads()[head], cond,
+                                   None if f32_module else self.kernel_weights.get(head),
+                                   self.compute_dtype)
         generator = None
         start = noise.get(head)
         if start is not None:

@@ -1,5 +1,6 @@
-"""Vocoder registry: classes under their name and its lowercase form; an
-unknown name resolves as a dotted import path ``pkg.mod.Class``."""
+"""Vocoder registry: classes under their name and its lowercase form
+(``NsfHifiGAN`` in ``wrapper.py``, ``DDSP`` in ``ddsp.py``); an unknown name
+resolves as a dotted import path ``pkg.mod.Class``."""
 
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ def register_vocoder(cls):
 
 
 def get_vocoder_cls(name: str):
-    if name in ("NsfHifiGAN", "nsfhifigan"):
-        from . import wrapper  # noqa: F401  (registers NsfHifiGAN)
+    from . import ddsp, wrapper  # noqa: F401  (register DDSP and NsfHifiGAN)
+
     if name in VOCODERS:
         return VOCODERS[name]
     if "." in name:

@@ -4,8 +4,9 @@ from __future__ import annotations
 
 import inspect
 import os
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -43,3 +44,22 @@ def generator_from_seed(seed: Optional[int], device: torch.device,
     g = torch.Generator(device=device)
     g.manual_seed(((int(seed) & 0xFFFFFFFF) << 8) | (salt & 0xFF))
     return g
+
+
+def collate_nd(arrays: Sequence[np.ndarray], pad_value=0, max_len: Optional[int] = None,
+               dtype=None, rows: Optional[int] = None) -> np.ndarray:
+    """Pad a list of nd-arrays along dim 0 to a common length (``max_len``,
+    default the longest) and stack them; ``dtype`` casts in the placement
+    write, and ``rows`` over-allocates the batch axis with padding rows."""
+    tgt = max(a.shape[0] for a in arrays) if max_len is None else max_len
+    arr0 = np.asarray(arrays[0])
+    n = max(len(arrays), rows or 0)
+    shape = (n, tgt, *arr0.shape[1:])
+    dt = np.dtype(dtype) if dtype is not None else arr0.dtype
+    if pad_value == 0:
+        out = np.zeros(shape, dtype=dt)
+    else:
+        out = np.full(shape, pad_value, dtype=dt)
+    for i, a in enumerate(arrays):
+        out[i, : a.shape[0]] = a
+    return out
