@@ -121,7 +121,9 @@ Phases, each printed on its own line:
      1e-6.  ``evaluate_variance`` on the variance experiment, the set's
      pitch the f32 modules' sample from the evaluation's own noise, must
      launch K4 20 x 20 an item (the pitch head) and nothing else, with
-     ``pitch_acc`` >= 0.999 and the duration figures in [0, 1].  Then the
+     ``pitch_acc`` >= 0.999, its sampled pitch within 10 cents RMS of the
+     set's f32 pitch over every real frame, and the duration figures in
+     [0, 1].  Then the
      DDSP wrapper on the card against the CPU (a TorchScript stand-in).
      Each evaluation's seconds and items/s are printed.
 
@@ -1796,12 +1798,12 @@ def acoustic_eval_set(cfg, work: Path, seed: int) -> list:
     return items, mels
 
 
-def variance_eval_set(cfg, work: Path) -> None:
+def variance_eval_set(cfg, work: Path) -> list:
     """The sample ``.ds``'s segments as a variance ``valid`` set (the
     runner's ``preprocess_input`` with durations and pitch; ``uv`` from the
     ``.ds``'s f0) whose ``pitch`` is the f32 modules' sample under the
     evaluation's condition from the noise the evaluation draws (item ``i``'s
-    generator)."""
+    generator).  Returns the items."""
     import numpy as np
 
     from xiaoicesing_io_tpu_torch.data.dataset import VarianceDataset
@@ -1829,11 +1831,12 @@ def variance_eval_set(cfg, work: Path) -> None:
     for i, item in enumerate(items):
         pitch, _ = sample_variance_inference(
             cfg, runner.model, runner.core, runner.normalizers, draft.collate([i]),
-            generator=generator_from_seed(i, runner.device), _f32_module=True)
+            generator=generator_from_seed(i, runner.device))
         item["pitch"] = pitch[0, :len(item["mel2ph"])].cpu().numpy()
     draft._ds.close()
     write_set(Path(cfg["binary_data_dir"]), "valid", items)
     del runner
+    return items
 
 
 def check_ddsp(work: Path) -> None:
@@ -1889,6 +1892,7 @@ def run_evaluation(lynx_cfg, variance_cfg, work: Path, name_limit: str, per_call
     from xiaoicesing_io_tpu_torch.config import Config
     from xiaoicesing_io_tpu_torch.eval.copy_synthesis import evaluate_acoustic, evaluate_variance
     from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
+    from xiaoicesing_io_tpu_torch.training import variance as training_variance
 
     t_phase = time.perf_counter()
     seed = 0
@@ -1959,15 +1963,27 @@ def run_evaluation(lynx_cfg, variance_cfg, work: Path, name_limit: str, per_call
     torch.cuda.empty_cache()
 
     vcfg = Config(variance_cfg, binary_data_dir=str(work / "variance_binary"))
-    variance_eval_set(vcfg, work)
+    vitems = variance_eval_set(vcfg, work)
     layers = vcfg["pitch_prediction_args"]["backbone_args"]["num_layers"]
     steps = vcfg["sampling_steps"]
-    check.zero_launch_counts()
-    t0 = time.perf_counter()
-    vreport = evaluate_variance(vcfg, "valid", device="cuda")
-    torch.cuda.synchronize()
-    vseconds = time.perf_counter() - t0
-    vlaunches = check.launch_counts()
+    pitches = []
+    sample = training_variance.sample_variance_inference
+
+    def recorded_pitch(*args, **kwargs):
+        out = sample(*args, **kwargs)
+        pitches.append(out[0][0].float().cpu().numpy())
+        return out
+
+    training_variance.sample_variance_inference = recorded_pitch
+    try:
+        check.zero_launch_counts()
+        t0 = time.perf_counter()
+        vreport = evaluate_variance(vcfg, "valid", device="cuda")
+        torch.cuda.synchronize()
+        vseconds = time.perf_counter() - t0
+        vlaunches = check.launch_counts()
+    finally:
+        training_variance.sample_variance_inference = sample
     vexpect = {name: 0 for name, _, _ in check.counters()}
     vexpect["wavenet_block"] = layers * steps * n
     log(f"[eval variance] {n} items: {vseconds:.2f}s ({n / vseconds:.4f} items/s); launches "
@@ -1981,6 +1997,13 @@ def run_evaluation(lynx_cfg, variance_cfg, work: Path, name_limit: str, per_call
         f"n_words={vreport['n_words']}")
     check.require(vreport["pitch_acc"] >= PITCH_ACC_MIN,
                   "the pitch head on K4 disagrees with its f32 modules")
+    cents = 100.0 * np.concatenate([p[:len(it["pitch"])] - it["pitch"]
+                                    for p, it in zip(pitches, vitems, strict=True)])
+    rms = float(np.sqrt(np.mean(cents ** 2)))
+    log(f"[eval variance] the evaluation's pitch (K4, bf16) against the set's f32 pitch over "
+        f"every real frame of {len(pitches)} items: max_abs_err={np.abs(cents).max():.4f} "
+        f"cents rms={rms:.4f} cents (tolerance rms <= {PITCH_TOL_CENTS})")
+    check.require(rms <= PITCH_TOL_CENTS, "the pitch head on K4 disagrees with its f32 modules")
     check.require(0.0 <= vreport["rhythm_corr"] <= 1.0 and 0.0 <= vreport["ph_dur_acc"] <= 1.0,
                   f"duration figures out of [0, 1]: {vreport}")
     check_ddsp(work / "ddsp")

@@ -689,7 +689,8 @@ def test_evaluate_acoustic_vocoder_errors(acoustic_exps, jax_reports, determinis
                                           tmp_path, capsys):
     """A missing vocoder checkpoint falls back to Griffin-Lim inversion, as
     in the JAX evaluation; any other error building the vocoder (here a
-    corrupt checkpoint) propagates, where the JAX evaluation falls back."""
+    corrupt checkpoint, then a missing ``config.json`` beside it) propagates,
+    where the JAX evaluation falls back."""
     from xiaoicesing_io_tpu_torch.eval.copy_synthesis import evaluate_acoustic as P
 
     jcfg, pcfg = (dict(c, vocoder_ckpt=str(tmp_path / "missing" / "model.ckpt"))
@@ -708,6 +709,10 @@ def test_evaluate_acoustic_vocoder_errors(acoustic_exps, jax_reports, determinis
     with pytest.raises(Exception) as info:
         P(pcfg, "valid", with_pesq=True, limit=1, device="cpu")
     assert not isinstance(info.value, FileNotFoundError)
+    assert "Griffin-Lim" not in capsys.readouterr().out
+    (tmp_path / "bad" / "config.json").unlink()  # a file the vocoder reads beside its checkpoint
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        P(pcfg, "valid", with_pesq=True, limit=1, device="cpu")
     assert "Griffin-Lim" not in capsys.readouterr().out
 
 
@@ -870,7 +875,7 @@ def test_sample_variance_inference_matches_jax(variance_exps):
     for k in var:
         np.testing.assert_allclose(var[k].numpy(), np.asarray(ref_var[k]), atol=TOL, rtol=0)
     module, _ = P(pcfg, model, build_variance_cores(pcfg), build_variance_normalizers(pcfg), b,
-                  kernel_weights=weights, noise=dict(noise), _f32_module=True)
+                  kernel_weights=None, noise=dict(noise))
     np.testing.assert_allclose(module.numpy(), pitch.numpy(), atol=TOL, rtol=0)
 
 

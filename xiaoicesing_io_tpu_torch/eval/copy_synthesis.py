@@ -115,15 +115,14 @@ def evaluate_acoustic(
     device = resolve_device(device)
     infer = DiffSingerAcousticInfer(cfg, load_vocoder=False, ckpt_steps=ckpt_steps,
                                     device=device)
-    griffin_lim = False
-    if with_pesq:
-        try:
-            infer.vocoder = get_vocoder_cls(cfg.get("vocoder", "NsfHifiGAN"))(cfg, device=device)
-        except FileNotFoundError as e:  # no vocoder checkpoint: any other error propagates
-            print(f"| WARN: vocoder unavailable ({e}); waveform metrics use Griffin-Lim "
-                  "inversion (both arms share the same mel->wav map, so relative orderings "
-                  "remain meaningful)")
-            griffin_lim = True
+    vocoder_ckpt = cfg.get("vocoder_ckpt")
+    griffin_lim = with_pesq and not (vocoder_ckpt and Path(vocoder_ckpt).exists())
+    if griffin_lim:  # only a missing checkpoint: any error building the vocoder propagates
+        print(f"| WARN: no vocoder checkpoint at {vocoder_ckpt!r}; waveform metrics use "
+              "Griffin-Lim inversion (both arms share the same mel->wav map, so relative "
+              "orderings remain meaningful)")
+    elif with_pesq:
+        infer.vocoder = get_vocoder_cls(cfg.get("vocoder", "NsfHifiGAN"))(cfg, device=device)
     mel_cfg = MelConfig.from_config(cfg)
     sr = cfg["audio_sample_rate"]
 

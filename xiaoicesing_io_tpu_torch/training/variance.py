@@ -31,23 +31,22 @@ def sample_variance_inference(
     kernel_weights: Optional[Dict[str, list]] = None,
     generator: Optional[torch.Generator] = None,
     noise: Optional[Dict[str, np.ndarray]] = None,
-    want_pitch: bool = True, want_variances: bool = False, _f32_module: bool = False,
+    want_pitch: bool = True, want_variances: bool = False,
 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """Sampled pitch and variance curves of a collated batch.
 
     ``kernel_weights`` maps a head (``pitch``, ``variances``) to its
     prepared K4 weights (``inference/variance.head_kernel_weights``): such a
     head runs ``wavenet_denoiser_apply``, bf16 with the kernel on the card
-    and f32 with its plain version on the CPU; any other head, and every
-    head under ``_f32_module``, its f32 module.  ``noise`` maps a head to
-    its start noise ``[B, F, T, bins]``; a head without one draws it from
-    ``generator`` (the pitch head first).  Returns ``(pitch [B, T] in MIDI
+    and f32 with its plain version on the CPU; any other head its f32
+    module.  ``noise`` maps a head to its start noise ``[B, F, T, bins]``;
+    a head without one draws it from ``generator`` (the pitch head first).  Returns ``(pitch [B, T] in MIDI
     or None, {name: curve [B, T]})``: the pitch is the base pitch plus the
     sampled delta, the curves denormalised.
     """
     dev = next(model.parameters()).device
     cd = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    kernel_weights = {} if _f32_module or kernel_weights is None else kernel_weights
+    kernel_weights = kernel_weights or {}
     noise = noise or {}
     b = batch_tensors(batch, dev)
     mel2ph = b["mel2ph"]
