@@ -126,6 +126,33 @@ Phases, each printed on its own line:
      [0, 1].  Then the
      DDSP wrapper on the card against the CPU (a TorchScript stand-in).
      Each evaluation's seconds and items/s are printed.
+ 13. (after phase 12, with the vocoder of phase 6) training on the card,
+     through ``training/tasks.py``'s trainers with a recording writer, on
+     synthetic binarized sets (64 train and 4 valid items of 400-1300
+     frames, written with the port's ``IndexedDatasetBuilder``).  The
+     shipped acoustic configuration (LYNXNet 1024 x 6, bf16-mixed,
+     ``max_batch_frames`` 50000, ``max_batch_size`` 64) takes 30 updates,
+     validating at 15 and 30 with 2 plots: every loss finite; the 4 valid
+     items' loss from fixed t and noise in eval mode lower after than
+     before; exactly 2 x 2 x 20 x 6 K1 launches and K2 and K6 six vocoder
+     calls' worth (4 predictions, 2 ground truths), nothing else; every
+     logged wav finite and frames x hop long; the last checkpoint loaded by
+     ``DiffSingerAcousticInfer(device="cuda")``, whose ``forward_model`` on
+     the last plotted item with the extras' seed must give the extras' mel
+     within 1e-5 of its scale; a second trainer with two more updates must
+     resume at step 30 in the saved epoch.  Then one full-width acoustic
+     step at B=2, T=256 from the same weights, batch, t and noise on the
+     card against the CPU in f32: in f32 the losses within 1e-4 relative
+     and each gradient tensor within 1e-3 of its largest CPU value, in
+     bf16-mixed the losses within 2 % and the global gradient cosine above
+     0.99.  Then the shipped variance configuration with energy and
+     breathiness takes 10 updates, validating at 5 and 10 with 2 plots:
+     exactly 2 x 2 x 20 x (20 + 10) K4 launches and nothing else,
+     ``rhythm_corr``, ``ph_dur_acc`` and ``pitch_acc`` in [0, 1].  Each leg
+     prints its ms per update (the median after the first 3 updates, on
+     the card's timeline, leaving out those after a validation), trained
+     audio-s/s over real frames, peak memory and each validation's wall
+     time.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -2015,6 +2042,434 @@ def run_evaluation(lynx_cfg, variance_cfg, work: Path, name_limit: str, per_call
     return {k: launches[k] + vlaunches[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# training: train for the acoustic task (K1, K2, K6 in its validation) and the variance task (K4)
+# ---------------------------------------------------------------------------
+
+TRAIN_ITEMS, VALID_ITEMS = 64, 4
+TRAIN_FRAMES = (400, 1300)          # 4.6-15.1 s an item at hop 512, 44.1 kHz
+ACOUSTIC_STEPS, ACOUSTIC_VAL_EVERY = 30, 15
+VARIANCE_STEPS, VARIANCE_VAL_EVERY = 10, 5
+TRAIN_PLOTS = 2                     # num_valid_plots
+STEP_LOSS_REL_F32 = 1e-4            # the card's f32 step against the CPU's
+STEP_GRAD_F32 = 1e-3                # of each gradient tensor's largest CPU value
+STEP_LOSS_REL_BF16 = 0.02           # the card's bf16-mixed step against the CPU's f32
+STEP_GRAD_COS_BF16 = 0.99
+TRAIN_MEL_SAME = 1e-5               # the extras' mel against the reloaded runner's, of its scale
+CARD = "cuda"                       # the device of phase 13
+
+
+class Recorder:
+    """A writer for the trainer that keeps its scalars and audio arrays."""
+
+    def __init__(self):
+        self.scalars, self.figures, self.audio = [], [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def add_figure(self, tag, fig, step):
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
+        self.figures.append((tag, step))
+
+    def add_audio(self, tag, wav, step, sample_rate):
+        import numpy as np
+
+        self.audio.append((tag, np.asarray(wav).reshape(-1), step, sample_rate))
+
+    def flush(self):
+        pass
+
+
+def _phrase(rng, frames: int, vocab: int):
+    """Phonemes of 5-30 frames filling ``frames``: tokens, ``mel2ph``, durations."""
+    import numpy as np
+
+    dur = []
+    while sum(dur) < frames:
+        dur.append(int(rng.integers(5, 31)))
+    dur[-1] -= sum(dur) - frames
+    if dur[-1] < 1:
+        dur[-2] += dur.pop()
+    dur = np.asarray(dur, np.int64)
+    tokens = rng.integers(1, vocab, len(dur)).astype(np.int64)
+    return tokens, np.repeat(np.arange(1, len(dur) + 1), dur).astype(np.int64), dur
+
+
+def acoustic_train_items(n: int, seed: int, vocab: int, mels: int = 128) -> list:
+    """Acoustic items of 400-1300 frames whose mel is a learnable function
+    of the phoneme (a template a token) and f0, plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    templates = np.random.default_rng(1234).uniform(-9.0, -2.0, (vocab, mels))
+    items = []
+    for _ in range(n):
+        frames = int(rng.integers(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1))
+        tokens, mel2ph, _ = _phrase(rng, frames, vocab)
+        t = np.arange(frames)
+        f0 = 220.0 * 2 ** (0.3 * np.sin(t / 40.0 + rng.uniform(0, 6)))
+        mel = (templates[tokens[mel2ph - 1]] + 0.5 * np.sin(np.outer(f0 / 110.0, np.arange(mels))
+                                                            / 16.0)
+               + 0.1 * rng.standard_normal((frames, mels)))
+        items.append({"tokens": tokens, "mel2ph": mel2ph, "mel": mel.astype(np.float32),
+                      "f0": f0.astype(np.float32)})
+    return items
+
+
+def variance_train_items(n: int, seed: int, vocab: int) -> list:
+    """Variance items of 400-1300 frames: words of one or two phonemes,
+    notes over the words, a base pitch from the notes and a pitch around
+    it, unvoiced frames, energy and breathiness curves in dB."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for _ in range(n):
+        frames = int(rng.integers(TRAIN_FRAMES[0], TRAIN_FRAMES[1] + 1))
+        tokens, mel2ph, ph_dur = _phrase(rng, frames, vocab)
+        ph2word = np.cumsum(np.r_[1, rng.uniform(size=len(tokens) - 1) < 0.6]).astype(np.int64)
+        word_dur = np.bincount(ph2word, weights=ph_dur)[1:].astype(np.int64)
+        note_dur = word_dur
+        note_midi = rng.uniform(55, 72, len(note_dur)).astype(np.float32)
+        note_rest = rng.uniform(size=len(note_dur)) < 0.1
+        mel2note = np.repeat(np.arange(1, len(note_dur) + 1), note_dur).astype(np.int64)
+        base = note_midi[mel2note - 1]
+        t = np.arange(frames)
+        items.append({
+            "tokens": tokens, "ph_dur": ph_dur,
+            "midi": np.round(note_midi[ph2word - 1]).astype(np.int64), "ph2word": ph2word,
+            "mel2ph": mel2ph, "note_midi": note_midi, "note_rest": note_rest,
+            "note_dur": note_dur, "mel2note": mel2note, "base_pitch": base,
+            "pitch": (base + 0.3 * np.sin(t / 12.0)).astype(np.float32),
+            "uv": rng.uniform(size=frames) < 0.1,
+            "energy": (-40 + 10 * np.sin(t / 30.0)).astype(np.float32),
+            "breathiness": (-60 + 8 * np.cos(t / 25.0)).astype(np.float32)})
+    return items
+
+
+def _write_sets(directory: Path, make, vocab: int) -> None:
+    write_set(directory, "train", make(TRAIN_ITEMS, 0, vocab))
+    write_set(directory, "valid", make(VALID_ITEMS, 1, vocab))
+
+
+def _vocab(cfg) -> int:
+    from xiaoicesing_io_tpu_torch.utils.phonemes import PhonemeDictionary
+    from xiaoicesing_io_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+    return TokenTextEncoder(PhonemeDictionary.load(cfg["dictionary"]).phoneme_list).vocab_size
+
+
+def train_leg(label: str, cfg, build, name_limit: str, expect: dict, trainer=None):
+    """One ``fit`` on the card with a recording writer: the launch counters
+    zeroed just before it and read just after, every update's losses and
+    real frames, each validation's wall time.  Returns (trainer, launches,
+    losses, frames, validations)."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+
+    trainer = trainer or build(cfg, device=CARD, writer=Recorder())
+    losses, frames, validations = [], [], []
+    step, validate = trainer.train_step, trainer.validate
+
+    def recorded_step(state, batch, generator):
+        updated, metrics = step(state, batch, generator)
+        losses.append(metrics)
+        frames.append((batch["mel2ph"] > 0).sum())
+        return updated, metrics
+
+    def timed_validate(at, sanity=False):
+        t0 = time.perf_counter()
+        out = validate(at, sanity=sanity)
+        torch.cuda.synchronize()
+        validations.append((at, sanity, time.perf_counter() - t0))
+        return out
+
+    trainer.train_step, trainer.validate = recorded_step, timed_validate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check.launch_counts()
+    trainer.train_step, trainer.validate = step, validate
+    want = {name: 0 for name, _, _ in check.counters()}
+    want.update(expect)
+    log(f"[train {label}] fit {seconds:.2f}s; launches {launches}; expected "
+        f"{ {k: v for k, v in want.items() if v} }, every other kernel 0")
+    check.check_launches(launches, want, True, f"the {label} training run")
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    frames = [int(f) for f in frames]
+    bad = [m for m in losses if not all(math.isfinite(v) for v in m.values())]
+    check.require(not bad, f"{label}: a loss is not finite: {bad[:3]}")
+    # update times on the card's timeline; an interval that ends after a
+    # validation and checkpoint is not a training step
+    ms = trainer.update_ms()
+    val_steps = {at for at, sanity, _ in validations if not sanity}
+    # ms[i]: update first + i + 2, timed from update first + i + 1 (first: the step before
+    # this fit); the first 3 updates and those right after a validation are left out
+    first = trainer.state.step - len(ms) - 1
+    steady = [(m, frames[i + 1]) for i, m in enumerate(ms)
+              if i >= 2 and first + i + 1 not in val_steps]
+    hop, sr = cfg["hop_size"], cfg["audio_sample_rate"]
+    med = sorted(m for m, _ in steady)[len(steady) // 2]
+    audio_sps = sum(f for _, f in steady) * hop / sr / (sum(m for m, _ in steady) / 1e3)
+    val_text = " ".join(f"{at}{'(sanity)' if sanity else ''}={s:.3f}s"
+                        for at, sanity, s in validations)
+    log(f"[timing train {label}] card={name_limit} updates={len(losses)} "
+        f"ms_per_update_median={med:.2f} (of {len(steady)} updates after the first 3, "
+        f"validations left out) trained_audio_s_per_s={audio_sps:.2f} (real frames) "
+        f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+        f"validation_wall {val_text} first_loss={losses[0]['total_loss']:.4f} "
+        f"last_loss={losses[-1]['total_loss']:.4f}")
+    return trainer, launches, losses, frames, validations
+
+
+def check_train_step_card_vs_cpu(cfg, vocab: int) -> None:
+    """One train step of the full-width acoustic model at B=2, T=256 from
+    the same weights, batch, t and noise: the card in f32 (TF32 off) and in
+    bf16-mixed against the CPU in f32, in eval mode (no dropout)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.training.acoustic import acoustic_losses, build_acoustic
+    from xiaoicesing_io_tpu_torch.training.variance import batch_tensors
+
+    torch.manual_seed(0)
+    model, core, normalizer = build_acoustic(cfg, vocab)
+    # a zero-initialised output projection would leave the backbone's gradients at zero
+    with torch.no_grad():
+        model.backbone.output_projection.weight.normal_(0.0, 0.02)
+        for block in model.aux_decoder.decoder.conv:
+            block.gamma.normal_(0.0, 0.1)
+    items = acoustic_train_items(2, 7, vocab)
+    for it, n in zip(items, (256, 200)):
+        for k in ("mel2ph", "mel", "f0"):
+            it[k] = it[k][:n]
+        it["tokens"] = it["tokens"][: int(it["mel2ph"].max())]
+    batch_np = {"tokens": np.zeros((2, 32), np.int64), "mel2ph": np.zeros((2, 256), np.int64),
+                "mel": np.zeros((2, 256, 128), np.float32), "f0": np.zeros((2, 256), np.float32)}
+    for i, it in enumerate(items):
+        for k, v in it.items():
+            batch_np[k][i, : len(v)] = v
+    g = torch.Generator().manual_seed(3)
+    t = core.t_start + (1 - core.t_start) * torch.rand(2, generator=g)
+    noise = torch.randn(2, 1, 256, 128, generator=g)
+
+    def step(m, device, bf16=False):
+        m.eval()
+        m.zero_grad(set_to_none=True)
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+            out = acoustic_losses(m, core, normalizer, cfg, batch_tensors(batch_np, device),
+                                  t=t.to(device), noise=noise.to(device))
+        sum(out.values()).backward()
+        return ({k: float(v.detach()) for k, v in out.items()},
+                {k: None if p.grad is None else p.grad.float().cpu()
+                 for k, p in m.named_parameters()})
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grad = step(model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    card = copy.deepcopy(model).to(CARD)
+    results = {}
+    for name, bf16 in (("f32", False), ("bf16-mixed", True)):
+        loss, grad = step(card, torch.device(CARD), bf16)
+        rel = max(abs(loss[k] - ref_loss[k]) / abs(ref_loss[k]) for k in ref_loss)
+        worst, worst_name, dot, n_got, n_ref = 0.0, None, 0.0, 0.0, 0.0
+        for k, r in ref_grad.items():
+            check_none = (r is None) == (grad[k] is None)
+            if not check_none:
+                raise AssertionError(f"{name}: gradient of {k} on one side only")
+            if r is None:
+                continue
+            scale = float(r.abs().max())
+            err = float((grad[k] - r).abs().max()) / max(scale, 1e-30)
+            if err > worst:
+                worst, worst_name = err, k
+            dot += float((grad[k].double() * r.double()).sum())
+            n_got += float((grad[k].double() ** 2).sum())
+            n_ref += float((r.double() ** 2).sum())
+        cos = dot / math.sqrt(n_got * n_ref)
+        results[name] = (rel, worst, worst_name, cos)
+        log(f"[train step {name}] full-width acoustic step B=2 T=256, card against CPU f32: "
+            f"losses {loss} vs {ref_loss}, max rel err {rel:.3g}; worst gradient tensor "
+            f"{worst_name} err {worst:.3g} of its scale; global gradient cosine {cos:.8f}")
+    rel, worst, _, _ = results["f32"]
+    check.require(rel <= STEP_LOSS_REL_F32 and worst <= STEP_GRAD_F32,
+                  f"the card's f32 train step disagrees with the CPU's (tolerance: losses "
+                  f"{STEP_LOSS_REL_F32} rel, gradients {STEP_GRAD_F32} of scale)")
+    rel, _, _, cos = results["bf16-mixed"]
+    check.require(rel <= STEP_LOSS_REL_BF16 and cos > STEP_GRAD_COS_BF16,
+                  f"the card's bf16-mixed train step disagrees with the CPU's f32 (tolerance: "
+                  f"losses {STEP_LOSS_REL_BF16} rel, gradient cosine > {STEP_GRAD_COS_BF16})")
+    log(f"[train step] CPU f32 step {cpu_s:.2f}s; tolerances: f32 losses {STEP_LOSS_REL_F32} "
+        f"rel, gradients {STEP_GRAD_F32} of each tensor's scale; bf16-mixed losses "
+        f"{STEP_LOSS_REL_BF16} rel, cosine > {STEP_GRAD_COS_BF16}")
+    del card
+    torch.cuda.empty_cache()
+
+
+def run_training(lynx_cfg, work: Path, name_limit: str, per_call: dict) -> dict:
+    """Phase 13: ``train`` for the acoustic task at the shipped acoustic
+    configuration and for the variance task at the shipped variance
+    configuration (with energy and breathiness), on synthetic binarized sets,
+    on the card; their launches, losses, held-out loss, logged audio, saved
+    checkpoint and resume; one train step on the card against the CPU.
+    Returns the launches of both legs."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config, variance_defaults
+    from xiaoicesing_io_tpu_torch.eval.copy_synthesis import _batch_from_item
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer
+    from xiaoicesing_io_tpu_torch.training.checkpoint import checkpoint_step, list_checkpoints
+    from xiaoicesing_io_tpu_torch.training.tasks import (
+        build_acoustic_trainer, build_variance_trainer,
+    )
+    from xiaoicesing_io_tpu_torch.training.variance import batch_tensors
+
+    t_phase = time.perf_counter()
+    vocab = _vocab(lynx_cfg)
+    cfg = Config(lynx_cfg, binary_data_dir=str(work / "acoustic_binary"),
+                 work_dir=str(work / "acoustic_exp"), max_updates=ACOUSTIC_STEPS,
+                 val_check_interval=ACOUSTIC_VAL_EVERY, num_valid_plots=TRAIN_PLOTS,
+                 log_interval=5)
+    t0 = time.perf_counter()
+    _write_sets(Path(cfg["binary_data_dir"]), acoustic_train_items, vocab)
+    log(f"[train acoustic] sets written in {time.perf_counter() - t0:.1f}s: {TRAIN_ITEMS} train "
+        f"and {VALID_ITEMS} valid items of {TRAIN_FRAMES[0]}-{TRAIN_FRAMES[1]} frames; "
+        f"{cfg['precision']}, max_batch_frames {cfg['max_batch_frames']}, max_batch_size "
+        f"{cfg['max_batch_size']}, LYNXNet {cfg['backbone_args']['num_channels']} x "
+        f"{cfg['backbone_args']['num_layers']}, vocoder {cfg['vocoder_ckpt']}")
+    trainer = build_acoustic_trainer(cfg, device=CARD, writer=Recorder())
+    valid = trainer.valid_dataset
+    held_out = batch_tensors(valid.collate(list(range(len(valid)))), trainer.device)
+
+    @torch.no_grad()
+    def held_out_loss():
+        model = trainer.state.model
+        model.eval()
+        g = torch.Generator(device=trainer.device).manual_seed(123)
+        out = trainer.val_losses_fn(held_out, g)
+        model.train()
+        return {k: float(v) for k, v in out.items()}
+
+    before = held_out_loss()
+    mels = []
+    forward = DiffSingerAcousticInfer.forward_model
+
+    def recorded(self, batch, seed=0, noise=None, _f32_module=False):
+        out = forward(self, batch, seed=seed, noise=noise, _f32_module=_f32_module)
+        mels.append((seed, out))
+        return out
+
+    layers, steps = cfg["backbone_args"]["num_layers"], cfg["sampling_steps"]
+    n_val = ACOUSTIC_STEPS // ACOUSTIC_VAL_EVERY
+    calls = n_val * TRAIN_PLOTS + TRAIN_PLOTS  # predictions, and the ground truth once
+    expect = {"lynx_conv_module": n_val * TRAIN_PLOTS * steps * layers,
+              **{k: v * calls for k, v in per_call.items()}}
+    DiffSingerAcousticInfer.forward_model = recorded
+    try:
+        trainer, launches, losses, _, _ = train_leg("acoustic", cfg, build_acoustic_trainer,
+                                                    name_limit, expect, trainer)
+    finally:
+        DiffSingerAcousticInfer.forward_model = forward
+    after = held_out_loss()
+    log(f"[train acoustic] held-out loss (the {VALID_ITEMS} valid items, fixed t and noise, "
+        f"eval mode) before {before} after {after}")
+    check.require(sum(after.values()) < sum(before.values()),
+                  "training did not lower the held-out loss")
+    writer = trainer.writer
+    hop = cfg["hop_size"]
+    want_tags = [f"validation/wav_{kind}_{i}" for v in range(n_val)
+                 for kind in (("diff", "gt") if v == 0 else ("diff",)) for i in range(TRAIN_PLOTS)]
+    check.require(sorted(t for t, _, _, _ in writer.audio) == sorted(want_tags),
+                  f"logged audio {[t for t, _, _, _ in writer.audio]}")
+    for tag, wav, step, _ in writer.audio:
+        frames = int((valid[int(tag.rsplit("_", 1)[1])]["mel2ph"] > 0).sum())
+        check.require(np.isfinite(wav).all() and wav.shape == (frames * hop,),
+                      f"{tag} at step {step}: {wav.shape} samples for {frames} frames")
+    log(f"[train acoustic] {len(writer.audio)} logged wavs, each finite and frames x {hop} long; "
+        f"{len(writer.scalars)} scalars, {len(writer.figures)} figures")
+    # the saved checkpoint through the runner, against the extras' mel of the last validation
+    ckpts = [checkpoint_step(p) for p in list_checkpoints(cfg["work_dir"])]
+    check.require(ckpts[-1] == ACOUSTIC_STEPS, f"checkpoints {ckpts}")
+    ckpt = torch.load(list_checkpoints(cfg["work_dir"])[-1], map_location="cpu",
+                      weights_only=False)
+    runner = DiffSingerAcousticInfer(cfg, load_vocoder=False, device=CARD)
+    item = TRAIN_PLOTS - 1
+    seed, extras_mel = mels[-TRAIN_PLOTS + item]
+    mel = runner.forward_model(_batch_from_item(cfg, runner, valid.collate([item])), seed=seed)
+    err = float(np.abs(mel - extras_mel).max())
+    scale = float(np.abs(extras_mel).max())
+    log(f"[train acoustic] checkpoint {ckpts[-1]} (epoch {ckpt['epoch']}) in "
+        f"DiffSingerAcousticInfer(device='cuda'): item {item}'s mel, seed {seed}, against the "
+        f"extras' at step {ACOUSTIC_STEPS}: max_abs_err {err:.3g} at a scale of {scale:.4g} "
+        f"(tolerance {TRAIN_MEL_SAME} of it)")
+    check.require(err <= TRAIN_MEL_SAME * scale, "the reloaded runner's mel differs from the "
+                  "extras'")
+    del runner
+    # resume: a second trainer with two more updates
+    cfg2 = Config(cfg, max_updates=ACOUSTIC_STEPS + 2)
+    trainer2 = build_acoustic_trainer(cfg2, device=CARD, writer=Recorder())
+    first, epochs = [], []
+    step2, sampler2 = trainer2.train_step, trainer2._make_sampler
+
+    def first_step(state, batch, generator):
+        first.append(state.step)
+        return step2(state, batch, generator)
+
+    def sampler(epoch):
+        epochs.append(epoch)
+        return sampler2(epoch)
+
+    trainer2.train_step, trainer2._make_sampler = first_step, sampler
+    trainer2.fit()
+    last = torch.load(list_checkpoints(cfg["work_dir"])[-1], map_location="cpu",
+                      weights_only=False)
+    log(f"[train acoustic] resumed at step {first[0]} in epoch {epochs[0]} (saved: step "
+        f"{ckpt['global_step']}, epoch {ckpt['epoch']}); its last checkpoint: step "
+        f"{last['global_step']}, epoch {last['epoch']}")
+    check.require(first[0] == ACOUSTIC_STEPS and epochs[0] == ckpt["epoch"]
+                  and last["global_step"] == ACOUSTIC_STEPS + 2,
+                  "the resume missed the saved step or epoch")
+    del trainer, trainer2
+    torch.cuda.empty_cache()
+    check_train_step_card_vs_cpu(cfg, vocab)
+
+    vcfg = variance_defaults()
+    vcfg.update(dictionary=lynx_cfg["dictionary"], binary_data_dir=str(work / "variance_binary"),
+                work_dir=str(work / "variance_exp"), predict_energy=True,
+                predict_breathiness=True, max_updates=VARIANCE_STEPS,
+                val_check_interval=VARIANCE_VAL_EVERY, num_valid_plots=TRAIN_PLOTS,
+                log_interval=VARIANCE_VAL_EVERY)
+    _write_sets(Path(vcfg["binary_data_dir"]), variance_train_items, vocab)
+    heads = (vcfg["pitch_prediction_args"]["backbone_args"]["num_layers"]
+             + vcfg["variances_prediction_args"]["backbone_args"]["num_layers"])
+    vexpect = {"wavenet_block": VARIANCE_STEPS // VARIANCE_VAL_EVERY * TRAIN_PLOTS
+               * vcfg["sampling_steps"] * heads}
+    vtrainer, vlaunches, _, _, _ = train_leg("variance", vcfg, build_variance_trainer,
+                                             name_limit, vexpect)
+    metrics = vtrainer.last_metrics
+    log(f"[train variance] validation metrics at step {VARIANCE_STEPS}: "
+        + " ".join(f"{k}={v:.6f}" for k, v in metrics.items()))
+    check.require(set(metrics) == {"rhythm_corr", "ph_dur_acc", "pitch_acc"}
+                  and all(0.0 <= v <= 1.0 for v in metrics.values()), f"metrics {metrics}")
+    del vtrainer
+    torch.cuda.empty_cache()
+    log(f"[done 13] {time.perf_counter() - t_phase:.1f}s")
+    return {k: launches[k] + vlaunches[k] for k in launches}
+
+
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
@@ -2097,6 +2552,7 @@ def main(argv) -> int:
         variance, variance_cfg = run_variance_pipeline(work / "pipeline", name_limit)
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
+        training = run_training(lynx_cfg, work / "train", name_limit, per_call)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sweep = run_sampler_sweep(name_limit)
@@ -2108,18 +2564,21 @@ def main(argv) -> int:
              source="xiaoicesing_io_tpu_torch/csrc/lynx_conv.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv.py:116",
              launches=lynx["lynx_conv_module"],
-             eval_path_launches=evaluation["lynx_conv_module"], library_ms=None, **k1),
+             eval_path_launches=evaluation["lynx_conv_module"],
+             training_path_launches=training["lynx_conv_module"], library_ms=None, **k1),
         dict(name="fused_resblock_stage", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_stage.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_stage.py:120",
              launches=lynx["fused_resblock_stage"],
-             eval_path_launches=evaluation["fused_resblock_stage"], library_ms=None, **k2),
+             eval_path_launches=evaluation["fused_resblock_stage"],
+             training_path_launches=training["fused_resblock_stage"], library_ms=None, **k2),
         dict(name="wavenet_block", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
              launches=wavenet["wavenet_block"],
              variance_path_launches=variance["wavenet_block"],
-             eval_path_launches=evaluation["wavenet_block"], library_ms=None, **k4),
+             eval_path_launches=evaluation["wavenet_block"],
+             training_path_launches=training["wavenet_block"], library_ms=None, **k4),
         dict(name="mel_spectrogram", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",
@@ -2140,7 +2599,8 @@ def main(argv) -> int:
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_resblock.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_resblock.py:105",
              launches=lynx["resblock_unit"],
-             eval_path_launches=evaluation["resblock_unit"], library_ms=None, **k6),
+             eval_path_launches=evaluation["resblock_unit"],
+             training_path_launches=training["resblock_unit"], library_ms=None, **k6),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -796,3 +796,191 @@ def test_copy_synthesis_on_card_launches_k3_once(cuda, tmp_path):
     assert np.isfinite(res["mel_mae"]) and np.isfinite(res["pesq"])
     sr, rec = wavfile.read(res["out"])
     assert sr == 44100 and len(rec) == num_frames(44100, 2048, 512) * 512
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+def _train_set(directory, prefix, n, seed, variance=False):
+    """Binarized items of 60-200 frames (the port's writer and ``.meta``)."""
+    import pickle
+
+    from xiaoicesing_io_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
+
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True, exist_ok=True)
+    b = IndexedDatasetBuilder(directory, prefix)
+    lengths = []
+    for _ in range(n):
+        t_ph = int(rng.integers(6, 14))
+        ph_dur = rng.integers(5, 15, t_ph).astype(np.int64)
+        mel2ph = np.repeat(np.arange(1, t_ph + 1), ph_dur).astype(np.int64)
+        t = len(mel2ph)
+        item = {"tokens": rng.integers(1, 60, t_ph).astype(np.int64), "mel2ph": mel2ph}
+        if variance:
+            ph2word = np.cumsum(np.r_[1, rng.uniform(size=t_ph - 1) < 0.5]).astype(np.int64)
+            note_dur = np.bincount(ph2word, weights=ph_dur)[1:].astype(np.int64)
+            note_midi = rng.uniform(55, 72, len(note_dur)).astype(np.float32)
+            mel2note = np.repeat(np.arange(1, len(note_dur) + 1), note_dur).astype(np.int64)
+            base = note_midi[mel2note - 1]
+            item.update(ph_dur=ph_dur, ph2word=ph2word, midi=np.round(note_midi[ph2word - 1])
+                        .astype(np.int64), note_midi=note_midi,
+                        note_rest=np.zeros(len(note_dur), bool), note_dur=note_dur,
+                        mel2note=mel2note, base_pitch=base,
+                        pitch=(base + 0.3 * np.sin(np.arange(t) / 9.0)).astype(np.float32),
+                        uv=rng.uniform(size=t) < 0.1,
+                        energy=rng.uniform(-60, -10, t).astype(np.float32))
+        else:
+            item.update(mel=rng.uniform(-9, -2, (t, 128)).astype(np.float32),
+                        f0=np.full(t, 220.0, np.float32))
+        b.add_item(item)
+        lengths.append(t)
+    b.finalize()
+    with open(directory / f"{prefix}.meta", "wb") as f:
+        pickle.dump({"lengths": lengths}, f)
+
+
+class _Recorder:
+    def __init__(self):
+        self.audio = []
+
+    def add_scalar(self, *args):
+        pass
+
+    def add_figure(self, tag, fig, step):
+        import matplotlib.pyplot as plt
+
+        plt.close(fig)
+
+    def add_audio(self, tag, wav, step, sample_rate):
+        self.audio.append((tag, np.asarray(wav).reshape(-1)))
+
+    def flush(self):
+        pass
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One acoustic train step (LYNXNet 256 x 2, shallow reflow) from the
+    same weights, batch, t and noise: the card in f32 against the CPU
+    within 1e-4 relative (losses) and 1e-3 of each gradient tensor's scale;
+    under bf16 autocast within 2 % and a gradient cosine above 0.99."""
+    import copy
+
+    from xiaoicesing_io_tpu_torch.config import Config, acoustic_defaults
+    from xiaoicesing_io_tpu_torch.training.acoustic import (
+        acoustic_losses, build_acoustic, mixed_precision,
+    )
+
+    cfg = acoustic_defaults()
+    cfg.update(hidden_size=128, enc_layers=1, backbone_args=Config(
+        num_channels=256, num_layers=2, kernel_size=31, strong_cond=True))
+    torch.manual_seed(0)
+    model, core, normalizer = build_acoustic(cfg, 60)
+    with torch.no_grad():
+        model.backbone.output_projection.weight.normal_(0.0, 0.02)
+    rng = np.random.default_rng(0)
+    mel2ph = np.zeros((2, 256), np.int64)
+    mel2ph[0] = np.repeat(np.arange(1, 17), 16)
+    mel2ph[1, :200] = np.repeat(np.arange(1, 11), 20)
+    batch = {"tokens": torch.tensor(rng.integers(1, 60, (2, 32))) * (torch.arange(32) < 16),
+             "mel2ph": torch.tensor(mel2ph),
+             "mel": torch.tensor(rng.uniform(-9, -2, (2, 256, 128)), dtype=torch.float32),
+             "f0": torch.full((2, 256), 220.0)}
+    t = torch.tensor([0.5, 0.83])
+    noise = torch.tensor(rng.standard_normal((2, 1, 256, 128)), dtype=torch.float32)
+
+    def step(m, device, precision):
+        m.eval().zero_grad(set_to_none=True)
+        with mixed_precision(Config(precision=precision), device):
+            out = acoustic_losses(m, core, normalizer, cfg,
+                                  {k: v.to(device) for k, v in batch.items()},
+                                  t=t.to(device), noise=noise.to(device))
+        sum(out.values()).backward()
+        return ({k: float(v.detach()) for k, v in out.items()},
+                {k: p.grad.float().cpu() for k, p in m.named_parameters() if p.grad is not None})
+
+    ref_loss, ref_grad = step(model, torch.device("cpu"), "fp32")
+    card = copy.deepcopy(model).to(cuda)
+    loss, grad = step(card, cuda, "fp32")
+    assert set(grad) == set(ref_grad)
+    for k in ref_loss:
+        assert abs(loss[k] - ref_loss[k]) <= 1e-4 * abs(ref_loss[k]), k
+    for k, r in ref_grad.items():
+        assert (grad[k] - r).abs().max() <= 1e-3 * r.abs().max(), k
+    loss, grad = step(card, cuda, "bf16-mixed")
+    for k in ref_loss:
+        assert abs(loss[k] - ref_loss[k]) <= 0.02 * abs(ref_loss[k]), k
+    a = torch.cat([grad[k].flatten().double() for k in ref_grad])
+    b = torch.cat([ref_grad[k].flatten().double() for k in ref_grad])
+    assert float(a @ b / (a.norm() * b.norm())) > 0.99
+
+
+def test_training_extras_launch_counts(cuda, tmp_path):
+    """A small acoustic fit (LYNXNet 64 x 2, a 64-channel vocoder) and a
+    small variance fit (64-channel WaveNet heads, 3 and 2 layers) on the card:
+    the validation extras launch K1 layers x steps a plot, K2 and K6 their
+    vocoder calls' worth (predictions, and the ground truth at the first
+    validation), K4 steps x the heads' layers a plot; training itself none."""
+    import json
+    from pathlib import Path
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config, acoustic_defaults, variance_defaults
+    from xiaoicesing_io_tpu_torch.models.vocoders.nsf_hifigan import (
+        Generator, NsfHifiganConfig,
+    )
+    from xiaoicesing_io_tpu_torch.training.tasks import (
+        build_acoustic_trainer, build_variance_trainer,
+    )
+
+    vcfg = dict(num_mels=128, sampling_rate=44100, hop_size=512, n_fft=2048, win_size=2048,
+                fmin=40, fmax=16000, upsample_rates=[8, 8, 2, 2, 2],
+                upsample_kernel_sizes=[16, 16, 4, 4, 4], upsample_initial_channel=64,
+                resblock="1", resblock_kernel_sizes=[3, 7, 11],
+                resblock_dilation_sizes=[[1, 3, 5]] * 3)
+    torch.manual_seed(0)
+    torch.save({"generator": Generator(NsfHifiganConfig.from_json(vcfg)).state_dict()},
+               tmp_path / "model.ckpt")
+    (tmp_path / "config.json").write_text(json.dumps(vcfg))
+    dictionary = str(Path(__file__).resolve().parent.parent / "dictionaries"
+                     / "opencpop-extension.txt")
+    _train_set(tmp_path / "ac", "train", 8, 0)
+    _train_set(tmp_path / "ac", "valid", 2, 1)
+    cfg = acoustic_defaults()
+    cfg.update(binary_data_dir=str(tmp_path / "ac"), work_dir=str(tmp_path / "e"),
+               dictionary=dictionary, vocoder_ckpt=str(tmp_path / "model.ckpt"),
+               hidden_size=64, enc_layers=1, sampling_steps=3, num_valid_plots=2,
+               max_updates=4, val_check_interval=2, max_batch_frames=1000,
+               backbone_args=Config(num_channels=64, num_layers=2, kernel_size=31,
+                                    strong_cond=True))
+    writer = _Recorder()
+    trainer = build_acoustic_trainer(cfg, device="cuda", writer=writer)
+    check.zero_launch_counts()
+    trainer.fit()
+    torch.cuda.synchronize()
+    calls = 2 * 2 + 2  # two validations of two plots, the ground truth once
+    want = {name: 0 for name, _, _ in check.counters()}
+    want.update(lynx_conv_module=2 * 2 * 3 * 2, fused_resblock_stage=2 * calls,
+                resblock_unit=27 * calls)
+    assert check.launch_counts() == want
+    assert len(writer.audio) == calls
+    assert all(np.isfinite(w).all() and len(w) % 512 == 0 for _, w in writer.audio)
+
+    _train_set(tmp_path / "var", "train", 8, 2, variance=True)
+    _train_set(tmp_path / "var", "valid", 2, 3, variance=True)
+    v = variance_defaults()
+    v.update(binary_data_dir=str(tmp_path / "var"), work_dir=str(tmp_path / "v"),
+             dictionary=dictionary, predict_energy=True, hidden_size=64, enc_layers=1,
+             sampling_steps=3, num_valid_plots=2, max_updates=4, val_check_interval=2,
+             max_batch_frames=1000)
+    v["pitch_prediction_args"]["backbone_args"].update(num_layers=3, num_channels=64)
+    v["variances_prediction_args"]["backbone_args"].update(num_layers=2, num_channels=64)
+    trainer = build_variance_trainer(v, device="cuda", writer=_Recorder())
+    check.zero_launch_counts()
+    trainer.fit()
+    torch.cuda.synchronize()
+    want = {name: 0 for name, _, _ in check.counters()}
+    want["wavenet_block"] = 2 * 2 * 3 * (3 + 2)
+    assert check.launch_counts() == want
+    assert set(trainer.last_metrics) == {"rhythm_corr", "ph_dur_acc", "pitch_acc"}

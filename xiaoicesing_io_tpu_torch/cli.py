@@ -5,6 +5,7 @@
     python -m xiaoicesing_io_tpu_torch.cli val_vocoder a.wav b.wav --config cfg.yaml [--out DIR]
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
     python -m xiaoicesing_io_tpu_torch.cli eval --exp my_exp [--dataset valid] [--pesq] [--json out.json]
+    python -m xiaoicesing_io_tpu_torch.cli train --config cfg.yaml --exp_name my_exp [--hparams k=v,...]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
@@ -18,8 +19,11 @@ PESQ*); ``vocode`` turns the ``.mel.npz`` that ``infer
 acoustic --mel`` writes into a wav.  ``eval`` scores an experiment over its
 binarized ``valid`` (or ``train``) set: mel MAE and MCD of an acoustic model
 (``--pesq``: also the vocoded waveforms), duration and pitch accuracy of a
-variance model.  Every command runs on CUDA unless ``--device`` names another
-device.
+variance model.  ``train`` trains the acoustic or variance model that the
+config's ``task_cls`` names on its ``binary_data_dir``, writing the merged
+config and reference-format checkpoints into ``<work_dir>/<exp_name>``;
+``--reset`` ignores a config saved there.  Every command runs on CUDA
+unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -226,6 +230,15 @@ def eval_cmd(args) -> None:
     dump(report)
 
 
+def train(args) -> None:
+    from .config import load_config
+    from .training.tasks import build_trainer_from_config
+
+    cfg = load_config(args.config, exp_name=args.exp_name, work_dir_root=args.work_dir,
+                      overrides=args.hparams, reset=args.reset, save=True)
+    build_trainer_from_config(cfg, device=args.device).fit()
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m xiaoicesing_io_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -308,6 +321,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="evaluate a specific checkpoint step (default: latest)")
     ev.add_argument("--device", default=None, help="torch device (default: cuda)")
     ev.set_defaults(func=eval_cmd)
+
+    tr = sub.add_parser("train", help="Train a model (acoustic or variance, from task_cls)")
+    tr.add_argument("--config", default=None, help="configuration file")
+    tr.add_argument("--exp_name", required=True, help="experiment name")
+    tr.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+    tr.add_argument("--hparams", default="", help="key=value overrides, comma separated")
+    tr.add_argument("--reset", action="store_true", help="ignore the saved work-dir config")
+    tr.add_argument("--device", default=None, help="torch device (default: cuda)")
+    tr.set_defaults(func=train)
     return parser
 
 

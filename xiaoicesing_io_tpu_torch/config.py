@@ -1,11 +1,11 @@
 """Configuration: a dict with attribute access, loaded from YAML or JSON.
 
-Same semantics as the JAX package's ``config.py`` for inference: recursive
-``base_config`` inheritance with deep merge, and the work dir's saved config
-merged in.  (Training's ``reset`` and ``key=value`` overrides are not ported
-yet.)
+Same semantics as the JAX package's ``config.py``: recursive ``base_config``
+inheritance with deep merge, the work dir's saved config merged in unless
+``reset``, ``key=value`` overrides on top (``a.b=1,c=[2,3]``, literals
+coerced), and :meth:`Config.save` of the merged config into the work dir.
 
-PyYAML is imported only when a ``.yaml`` file is parsed.  The acoustic and
+PyYAML is imported only when a ``.yaml`` file is parsed or written.  The acoustic and
 variance defaults (``base.yaml`` merged with ``acoustic.yaml`` or
 ``variance.yaml``) ship as ``configs/acoustic.json`` and
 ``configs/variance.json``, so the port loads them where PyYAML is absent;
@@ -15,6 +15,7 @@ variance defaults (``base.yaml`` merged with ``acoustic.yaml`` or
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 from pathlib import Path
@@ -36,6 +37,15 @@ class Config(dict):
 
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
+
+    def save(self, path: PathLike) -> None:
+        """Write the config as YAML (``config.yaml`` of a work dir)."""
+        import yaml
+
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            yaml.safe_dump(_plain(self), f, sort_keys=True, allow_unicode=True)
 
 
 def _plain(obj: Any) -> Any:
@@ -104,24 +114,80 @@ def _load_chain(path: Path, seen: Optional[set] = None) -> dict:
     return merged
 
 
+def coerce_value(s: str) -> Any:
+    """A ``key=value`` override's value: a Python literal where it parses as
+    one, ``true`` / ``false`` / ``null`` in any case, else the string."""
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        low = s.strip().lower()
+        if low in ("true", "false"):
+            return low == "true"
+        if low in ("null", "none", "~"):
+            return None
+        return s
+
+
+def parse_overrides(spec: Union[str, Mapping, None]) -> dict:
+    """``"a.b=1,c=[2,3]"`` -> ``{"a": {"b": 1}, "c": [2, 3]}``; commas inside
+    brackets do not split."""
+    if not spec:
+        return {}
+    if isinstance(spec, Mapping):
+        return dict(spec)
+    items, depth, cur = [], 0, []
+    for ch in spec:
+        if ch in "[({":
+            depth += 1
+        elif ch in "])}":
+            depth -= 1
+        if ch == "," and depth == 0:
+            items.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        items.append("".join(cur))
+    out: dict = {}
+    for item in items:
+        item = item.strip()
+        if not item:
+            continue
+        if "=" not in item:
+            raise ValueError(f"override {item!r} is not of the form key=value")
+        k, v = item.split("=", 1)
+        node = out
+        parts = k.strip().split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = coerce_value(v)
+    return out
+
+
 def load_config(
     config_path: Optional[PathLike] = None,
     *,
     exp_name: Optional[str] = None,
     work_dir_root: PathLike = "checkpoints",
+    overrides: Union[str, Mapping, None] = None,
+    reset: bool = False,
     infer: bool = False,
+    save: bool = False,
 ) -> Config:
     """Precedence (lowest to highest): base_config chain < file itself <
-    saved work-dir ``config.yaml`` / ``config.json``."""
+    saved work-dir ``config.yaml`` / ``config.json`` (unless ``reset``) <
+    ``overrides``.  ``save`` writes the result to the work dir's
+    ``config.yaml``."""
     merged: dict = {}
     if config_path is not None:
         merged = _load_chain(Path(config_path))
 
+    work_dir = None
     if exp_name:
         work_dir = Path(work_dir_root) / exp_name
         saved = next((p for p in (work_dir / "config.yaml", work_dir / "config.json")
                       if p.exists()), None)
-        if saved is not None:
+        if saved is not None and not reset:
             saved_cfg = read_file(saved)
             if config_path is None:
                 merged = saved_cfg
@@ -135,12 +201,16 @@ def load_config(
         merged["exp_name"] = exp_name
         merged["work_dir"] = str(work_dir)
 
+    deep_merge(merged, parse_overrides(overrides))
     merged["infer"] = infer
 
     from .compat import migrate_legacy_keys
 
     migrate_legacy_keys(merged)
-    return _wrap(merged)
+    cfg = _wrap(merged)
+    if save and work_dir is not None:
+        cfg.save(work_dir / "config.yaml")
+    return cfg
 
 
 def acoustic_defaults() -> Config:

@@ -81,30 +81,46 @@ def find_checkpoint(work_dir, ckpt_steps: Optional[int] = None) -> Path:
 class DiffSingerAcousticInfer(BaseSVSInfer):
     def __init__(self, cfg, load_vocoder: bool = True, ckpt_steps=None, device=None):
         super().__init__(cfg)
-        self.device = resolve_device(device)
-        self.variances_to_embed = [v for v in VARIANCE_CHECKLIST
-                                   if cfg.get(f"use_{v}_embed", False)]
+        device = resolve_device(device)
         phdict = PhonemeDictionary.load(
             locate_dictionary(cfg.get("dictionary"), cfg.get("work_dir"))
         )
         self.ph_encoder = TokenTextEncoder(phdict.phoneme_list)
-        model, self.core, self.normalizer = build_acoustic(cfg, self.ph_encoder.vocab_size)
+        model, core, normalizer = build_acoustic(cfg, self.ph_encoder.vocab_size)
         # reference Lightning checkpoints hold more than tensors
         ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
                           weights_only=False)
         load_acoustic_state_dict(model, ckpt.get("state_dict", ckpt))
-        self.model = model.to(self.device).eval()
+        self._setup(model.to(device).eval(), core, normalizer)
+        if load_vocoder:
+            from ..models.vocoders import get_vocoder_cls
+
+            self.vocoder = get_vocoder_cls(cfg.get("vocoder", "NsfHifiGAN"))(cfg, device=device)
+
+    @classmethod
+    def from_model(cls, cfg, model, core, normalizer) -> "DiffSingerAcousticInfer":
+        """A runner over a model in memory, on the model's device, in the
+        model's mode, without a phoneme encoder or vocoder (training's
+        validation samples through it).  The kernels' weights are prepared
+        from the model's parameters as they are now."""
+        self = cls.__new__(cls)
+        BaseSVSInfer.__init__(self, cfg)
+        self.ph_encoder = None
+        self._setup(model, core, normalizer)
+        return self
+
+    def _setup(self, model, core, normalizer) -> None:
+        self.model, self.core, self.normalizer = model, core, normalizer
+        self.device = next(model.parameters()).device
+        self.variances_to_embed = [v for v in VARIANCE_CHECKLIST
+                                   if self.cfg.get(f"use_{v}_embed", False)]
         self.compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.kernel_weights = None
         if self.use_kernels:
             prepare = wavenet_kernel_weights if self.backbone_type == "wavenet" \
                 else lynx_kernel_weights
-            self.kernel_weights = prepare(self.model.backbone, self.compute_dtype)
+            self.kernel_weights = prepare(model.backbone, self.compute_dtype)
         self.vocoder = None
-        if load_vocoder:
-            from ..models.vocoders import get_vocoder_cls
-
-            self.vocoder = get_vocoder_cls(cfg.get("vocoder", "NsfHifiGAN"))(cfg, device=device)
 
     @property
     def backbone_type(self) -> str:

@@ -103,11 +103,13 @@ class SelfAttention(nn.Module):
         q, k, v = heads(q), heads(k), heads(v)
         if self.use_rope:
             q, k = apply_rope(q), apply_rope(k)
-        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(D)
-        if padding_mask is not None:
-            scores = scores.masked_fill(padding_mask[:, None, None, :],
-                                        torch.finfo(torch.float32).min)
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        # scores and softmax in f32, also under autocast (training's bf16-mixed)
+        with torch.autocast(x.device.type, enabled=False):
+            scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(D)
+            if padding_mask is not None:
+                scores = scores.masked_fill(padding_mask[:, None, None, :],
+                                            torch.finfo(torch.float32).min)
+            w = torch.softmax(scores, dim=-1).to(v.dtype)
         out = (w @ v).transpose(1, 2).reshape(B, T, C)
         return self.out_proj(out)
 

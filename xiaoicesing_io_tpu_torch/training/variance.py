@@ -1,10 +1,16 @@
-"""Variance model sampling under the validation condition.
+"""Variance training and sampling (counterpart of the JAX package's
+``training/variance.py``).
 
-Counterpart of the JAX package's ``training/variance.py:
-sample_variance_inference`` (the losses and the train step are not ported
-yet).  A collated batch (``data/dataset.VarianceDataset.collate``) is
-sampled at its own shape: ground-truth ``mel2ph``, full retake, and the
-encoder given ``ph_dur`` (it sums the word durations from them).
+:func:`variance_losses`: ``lambda_dur_loss`` x the duration loss, and the
+pitch and multi-variance heads' diffusion or rectified-flow losses, masked
+by ``mel2ph > 0``, under random retake masks (:func:`random_retake_masks`:
+a quarter of the rows whole, else one random span).  Without the melody
+encoder the pitch target is the delta to the base pitch on retaken frames
+only: the condition already holds the given pitch elsewhere.
+:func:`sample_variance_inference` samples a collated batch
+(``data/dataset.VarianceDataset.collate``) at its own shape under the
+validation condition: ground-truth ``mel2ph``, full retake, and the encoder
+given ``ph_dur`` (it sums the word durations from them).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import torch
 
 from ..inference.variance import BATCH_TYPES, head_denoiser
 from ..models.diffusion.core import GaussianDiffusion
+from . import losses
+from .acoustic import diffusion_branch, make_train_step
 
 
 def batch_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -94,3 +102,87 @@ def sample_variance_inference(
         out = normalizers["variances"].denorm(x)
         variances_out = dict(zip(names, [out] if len(names) == 1 else out))
     return pred_pitch, variances_out
+
+
+def random_retake_masks(b: int, t: int, generator: Optional[torch.Generator] = None,
+                        device=None, *, full: Optional[torch.Tensor] = None,
+                        ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[b, t]`` retake masks: a row is retaken whole where its draw
+    ``full`` (``[b, 1]`` in ``[0, 4)``) is 0, else on ``[lo, hi)`` of its two
+    sorted draws ``ends`` (``[b, 2]`` in ``[0, t]``).  The draws come from
+    ``generator`` unless given."""
+    if full is None:
+        full = torch.randint(0, 4, (b, 1), generator=generator, device=device)
+    if ends is None:
+        ends = torch.randint(0, t + 1, (b, 2), generator=generator, device=device)
+    ends = ends.sort(dim=1).values
+    idx = torch.arange(t, device=ends.device)[None, :]
+    return (full == 0) | ((idx >= ends[:, :1]) & (idx < ends[:, 1:]))
+
+
+def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator] = None, *,
+                    retakes: Optional[Dict[str, torch.Tensor]] = None,
+                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                    var_t: Optional[torch.Tensor] = None,
+                    var_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One forward pass -> ``{"dur_loss", "pitch_loss", "var_loss"}`` (as
+    configured).  ``retakes`` (``pitch`` and each predicted curve, bool
+    ``[B, T]``), the pitch head's ``t`` and ``noise`` and the variance
+    head's ``var_t`` and ``var_noise`` are drawn from ``generator`` unless
+    given (the masks first: pitch, then the curves in order)."""
+    retakes = dict(retakes or {})
+    out: Dict[str, torch.Tensor] = {}
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    predict_pitch = cfg.get("predict_pitch", True)
+    names = model.variance_prediction_list
+    spk_id = batch.get("spk_ids") if cfg.get("use_spk_id", False) else None
+    encoder_out, dur_pred = model.encode(tokens, batch.get("midi"), batch.get("ph2word"),
+                                         ph_dur=batch["ph_dur"], spk_id=spk_id, infer=False)
+    if dur_pred is not None:
+        dur_args = cfg.get("dur_prediction_args", {})
+        out["dur_loss"] = cfg.get("lambda_dur_loss", 1.0) * losses.duration_loss(
+            dur_pred.float(), batch["ph_dur"], batch["ph2word"],
+            offset=dur_args.get("log_offset", 1.0), loss_type=dur_args.get("loss_type", "mse"),
+            lambda_pdur=dur_args.get("lambda_pdur_loss", 0.3),
+            lambda_wdur=dur_args.get("lambda_wdur_loss", 1.0),
+            lambda_sdur=dur_args.get("lambda_sdur_loss", 3.0))
+    if not predict_pitch and not names:
+        return out
+    mel2ph = batch["mel2ph"]
+    t_frames = mel2ph.shape[1]
+    non_padding = (mel2ph > 0).float()
+    condition = model.frame_condition(encoder_out, mel2ph, spk_id=spk_id)
+    for name in (["pitch"] if predict_pitch else []) + list(names):
+        if name not in retakes:
+            retakes[name] = random_retake_masks(b, t_frames, generator, mel2ph.device)
+    if predict_pitch:
+        retake = retakes["pitch"]
+        pitch_cond = model.pitch_condition(
+            condition, mel2ph, batch["base_pitch"], pitch=batch["pitch"], pitch_retake=retake,
+            note_midi=batch.get("note_midi"), note_rest=batch.get("note_rest"),
+            note_dur=batch.get("note_dur"), note_glide=batch.get("note_glide"),
+            mel2note=batch.get("mel2note"))
+        delta = batch["pitch"] - batch["base_pitch"]
+        if not cfg.get("use_melody_encoder", False):
+            delta = delta * retake
+        out["pitch_loss"] = cfg.get("lambda_pitch_loss", 1.0) * diffusion_branch(
+            core, cfg, lambda x, tt: model.denoise_pitch(x, tt, pitch_cond),
+            normalizers["pitch"].norm(delta), non_padding, generator, t=t, noise=noise,
+            log_norm_default=True)
+    if names:
+        var_cond = model.variance_condition(condition, batch["pitch"],
+                                            {v: batch[v] for v in names},
+                                            variance_retake={v: retakes[v] for v in names})
+        out["var_loss"] = cfg.get("lambda_var_loss", 1.0) * diffusion_branch(
+            core, cfg, lambda x, tt: model.denoise_variance(x, tt, var_cond),
+            normalizers["variances"].norm([batch[v] for v in names]), non_padding, generator,
+            t=var_t, noise=var_noise, log_norm_default=True)
+    return out
+
+
+def make_variance_train_step(model, core, normalizers, cfg):
+    return make_train_step(
+        lambda batch, generator, **draws: variance_losses(
+            model, core, normalizers, cfg, batch, generator, **draws), cfg)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import inspect
 import os
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -63,3 +63,28 @@ def collate_nd(arrays: Sequence[np.ndarray], pad_value=0, max_len: Optional[int]
     for i, a in enumerate(arrays):
         out[i, : a.shape[0]] = a
     return out
+
+
+def batch_by_size(indices: Sequence[int], num_frames_fn: Callable[[int], int],
+                  max_batch_frames: int = 80000, max_batch_size: int = 48) -> List[List[int]]:
+    """Group dataset indices, in the given order, into batches capped by
+    total frames (every item padded to the batch's longest) and item count:
+    a batch closes when the next item would exceed either cap."""
+    batches: List[List[int]] = []
+    cur: List[int] = []
+    cur_max = 0
+    for idx in indices:
+        idx = int(idx)
+        n = num_frames_fn(idx)
+        if n > max_batch_frames:
+            raise ValueError(
+                f"item {idx} has {n} frames which exceeds max_batch_frames={max_batch_frames}")
+        new_max = max(cur_max, n)
+        if cur and (len(cur) + 1 > max_batch_size or new_max * (len(cur) + 1) > max_batch_frames):
+            batches.append(cur)
+            cur, new_max = [], n
+        cur.append(idx)
+        cur_max = new_max
+    if cur:
+        batches.append(cur)
+    return batches
