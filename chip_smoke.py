@@ -153,6 +153,28 @@ Phases, each printed on its own line:
      the card's timeline, leaving out those after a validation), trained
      audio-s/s over real frames, peak memory and each validation's wall
      time.
+ 14. (after phase 13) binarization, ``binarize``'s binarizers on a
+     synthetic raw set: two speakers, 12 sung phrases of 3-8 s at 44.1 kHz
+     (harmonic tones along random notes with vibrato and -40 dB noise) over
+     every phone of ``dictionaries/opencpop-extension.txt``, with
+     ``ph_num``, ``note_seq`` and ``note_dur``.  The acoustic binarizer at the
+     shipped settings (``pe: parselmouth``, ``hnsep: world``) with energy,
+     breathiness, voicing and tension and both augmentations (random pitch
+     shifting, random time stretching): every item finite, its frame arrays
+     of one length, augmented items written, the set read back through
+     ``AcousticDataset`` and one batch collated.  The variance binarizer with
+     ``pe: rmvpe`` and ``hnsep: vr`` on random nets under the reference
+     names (``E2E0()`` at its defaults; a stereo ``CascadedNet``, ``nout``
+     32, ``nout_lstm`` 128, ``n_fft`` 2048, hop 512 in its ``config.yaml``),
+     which run on the card: every item finite.  Each binarization runs with
+     the launch counters zeroed just before it and read just after: every
+     kernel 0 (binarization launches none; each kernel's
+     ``binarize_path_launches``).  Then RMVPE's salience and the VR mask of
+     the shortest item on the card against the same modules on the CPU
+     (f32, TF32 off; tolerance 1e-4 absolute).  Each binarization prints its
+     raw and written items per second, the seconds of each stage (load,
+     mel, pitch, separation, curves, augmentation, write) and the card's
+     peak memory.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -236,6 +258,7 @@ from __future__ import annotations
 
 import json
 import math
+import random
 import shutil
 import subprocess
 import sys
@@ -2470,6 +2493,263 @@ def run_training(lynx_cfg, work: Path, name_limit: str, per_call: dict) -> dict:
     return {k: launches[k] + vlaunches[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# binarization: raw wavs + transcriptions.csv -> binarized sets (no kernel; RMVPE and the
+# vocal-remover net on the card)
+# ---------------------------------------------------------------------------
+
+BIN_SPEAKERS = ("spk_a", "spk_b")
+BIN_ITEMS = 6                        # a speaker
+BIN_SECONDS = (3.0, 8.0)
+BIN_SR = 44100
+VR_WIDTHS = dict(n_fft=2048, hop_length=512, n_out=32, n_out_lstm=128, is_mono=False)
+NET_CARD_VS_CPU = 1e-4               # RMVPE's salience and the VR mask, absolute, TF32 off
+BIN_STAGES = ("load", "mel", "pitch", "separation", "curves", "augmentation", "write")
+
+
+def raw_singing_set(root: Path, dictionary, seed: int = 0) -> list:
+    """Two speakers' raw sets of sung phrases: every phone of ``dictionary``
+    in turn, 0.08-0.25 s each, words of one or two phones under one note
+    (C3-B4; rests on AP and SP), the wav a harmonic tone along the notes with
+    5.5 Hz vibrato and white noise 40 dB below it; ``transcriptions.csv`` with
+    ``ph_seq``, ``ph_dur``, ``ph_num``, ``note_seq`` and ``note_dur``.
+    Returns the wav paths."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.utils.audio import save_wav
+    from xiaoicesing_io_tpu_torch.utils.music import midi_to_hz, midi_to_note
+    from xiaoicesing_io_tpu_torch.utils.phonemes import PhonemeDictionary
+
+    rng = np.random.default_rng(seed)
+    phones = [p for p in PhonemeDictionary.load(dictionary).phoneme_list if p not in ("AP", "SP")]
+    cursor, wavs = 0, []
+    for spk in BIN_SPEAKERS:
+        (root / spk / "wavs").mkdir(parents=True)
+        rows = ["name,ph_seq,ph_dur,ph_num,note_seq,note_dur"]
+        for i in range(BIN_ITEMS):
+            seconds = float(rng.uniform(*BIN_SECONDS))
+            ph_seq, ph_dur = ["SP"], [0.3]
+            while sum(ph_dur) < seconds - 0.5:
+                ph_seq.append(phones[cursor % len(phones)])
+                ph_dur.append(round(float(rng.uniform(0.08, 0.25)), 4))
+                cursor += 1
+            ph_seq.append("AP" if i % 2 else "SP")
+            ph_dur.append(round(seconds - sum(ph_dur), 4))
+            words, k = [1], 1  # the leading SP, words of 1-2 phones, the tail
+            while k < len(ph_seq) - 1:
+                words.append(min(int(rng.integers(1, 3)), len(ph_seq) - 1 - k))
+                k += words[-1]
+            words.append(1)
+            bounds = np.cumsum([0] + words)
+            midis = [None if ph_seq[a] in ("AP", "SP") else int(rng.integers(48, 72))
+                     for a in bounds[:-1]]
+            note_dur = [round(sum(ph_dur[a:b]), 4) for a, b in zip(bounds[:-1], bounds[1:])]
+            n = int(sum(ph_dur) * BIN_SR)
+            t = np.arange(n) / BIN_SR
+            idx = np.minimum(np.searchsorted(np.cumsum(note_dur) * BIN_SR, np.arange(n),
+                                             side="right"), len(midis) - 1)
+            midi = np.array([60 if m is None else m for m in midis], np.float64)[idx]
+            f0 = midi_to_hz(midi) * 2.0 ** (0.3 * np.sin(2 * np.pi * 5.5 * t) / 12)
+            phase = 2 * np.pi * np.cumsum(f0) / BIN_SR
+            x = sum(np.sin(k * phase) / k for k in range(1, 9))
+            x = 0.5 * x / np.abs(x).max() * np.where(
+                np.array([m is None for m in midis])[idx], 0.02, 1.0)
+            x += rng.standard_normal(n) * np.sqrt(np.mean(x ** 2)) * 10 ** (-40 / 20)
+            name = f"{spk}_{i:02d}"
+            wavs.append(root / spk / "wavs" / f"{name}.wav")
+            save_wav(x.astype(np.float32), wavs[-1], BIN_SR)
+            rows.append(",".join([
+                name, " ".join(ph_seq), " ".join(f"{d:.4f}" for d in ph_dur),
+                " ".join(map(str, words)),
+                " ".join("rest" if m is None else midi_to_note(m) for m in midis),
+                " ".join(f"{d:.4f}" for d in note_dur)]))
+        (root / spk / "transcriptions.csv").write_text("\n".join(rows) + "\n")
+    return wavs
+
+
+def binarization_nets(work: Path, device: str, vr_widths: dict) -> tuple:
+    """Random full-width RMVPE (``E2E0()``) and vocal remover (``CascadedNet``
+    at ``vr_widths``, written into its ``config.yaml``) under the reference
+    names, with random BatchNorm statistics; -> (pe_ckpt, hnsep_ckpt)."""
+    import torch
+    import yaml
+
+    from xiaoicesing_io_tpu_torch.models.hnsep_vr import CascadedNet
+    from xiaoicesing_io_tpu_torch.models.pe.rmvpe import E2E0
+
+    torch.manual_seed(14)
+    work.mkdir(parents=True, exist_ok=True)
+    nets = (E2E0(), CascadedNet(vr_widths["n_fft"], nout=vr_widths["n_out"],
+                                nout_lstm=vr_widths["n_out_lstm"],
+                                is_mono=vr_widths["is_mono"]))
+    with torch.no_grad():
+        for net in nets:
+            for m in net.modules():
+                if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                    m.weight.uniform_(0.5, 1.5)
+                    m.bias.normal_(0.0, 0.1)
+                    m.running_mean.normal_(0.0, 0.1)
+                    m.running_var.uniform_(0.5, 1.5)
+    torch.save({"model": nets[0].state_dict()}, work / "rmvpe.pt")
+    (work / "vr").mkdir()
+    torch.save(nets[1].state_dict(), work / "vr" / "model.pt")
+    (work / "vr" / "config.yaml").write_text(yaml.safe_dump(vr_widths))
+    return str(work / "rmvpe.pt"), str(work / "vr" / "model.pt")
+
+
+def binarize_leg(label: str, cls, cfg, device: str, raw_items: int, name_limit: str) -> tuple:
+    """One binarization with the launch counters zeroed just before it and
+    read just after (binarization launches no kernel); every written item
+    finite and its frame arrays of one length.  -> (binarizer, train and
+    valid items, launches)."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.data.indexed_dataset import IndexedDataset
+
+    on_card = device != "cpu"
+    held = 0
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    binarizer = cls(cfg, device=device)
+    binarizer.process()
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check.launch_counts()
+    check.check_launches(launches, {name: 0 for name, _, _ in check.counters()}, on_card,
+                         f"the {label} binarization")
+    out = Path(cfg["binary_data_dir"])
+    items = {p: [IndexedDataset(out, p)[i] for i in range(len(IndexedDataset(out, p)))]
+             for p in ("train", "valid")}
+    written = sum(len(v) for v in items.values())
+    frame_keys = ("mel", "mel2ph", "f0", "mel2note", "base_pitch", "pitch", "uv", "energy",
+                  "breathiness", "voicing", "tension")
+    for it in items["train"] + items["valid"]:
+        bad = [k for k, v in it.items() if np.issubdtype(np.asarray(v).dtype, np.floating)
+               and not np.isfinite(v).all()]
+        check.require(not bad, f"{label}: non-finite {bad}")
+        lengths = {np.asarray(it[k]).shape[0] for k in frame_keys if k in it}
+        check.require(len(lengths) == 1, f"{label}: frame arrays of lengths {lengths}")
+    audio = sum(float(np.asarray(it["mel2ph"]).shape[0]) for it in items["train"] + items["valid"]
+                ) * cfg["hop_size"] / cfg["audio_sample_rate"]
+    stages = " ".join(f"{k}={binarizer.stage_seconds.get(k, 0.0):.3f}s" for k in BIN_STAGES)
+    # the binarization's own peak, above what earlier phases still hold
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30 if on_card else float("nan")
+    log(f"[binarize {label}] card={name_limit} {seconds:.2f}s: {raw_items} raw items -> "
+        f"{written} written ({len(items['train'])} train, {len(items['valid'])} valid, "
+        f"{audio:.1f} s of audio); raw_items_per_s={raw_items / seconds:.4f} "
+        f"written_items_per_s={written / seconds:.4f}; stages {stages}; "
+        f"peak_mem_gib={peak:.3f} (above {held / 2 ** 30:.3f} held before); launches "
+        f"{launches} (binarization launches no kernel)")
+    return binarizer, items, launches
+
+
+def check_nets_card_vs_cpu(binarizer, wav_path: Path, device: str) -> None:
+    """RMVPE's salience and the VR mask of one item on the card against the
+    same modules on the CPU, from the same mel and spectrogram (f32, TF32 off
+    on the card)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.dsp.hnsep import vocal_remover
+    from xiaoicesing_io_tpu_torch.utils import exact_f32
+    from xiaoicesing_io_tpu_torch.utils.audio import load_wav
+
+    wav, _ = load_wav(wav_path, sr=BIN_SR, mono=True)
+    rmvpe = binarizer.pitch_extractor
+    mel, frames = rmvpe.mel_frames(wav, BIN_SR)
+    vr = vocal_remover(binarizer.cfg["hnsep_ckpt"], device)
+    ri = vr.spectrogram(wav)[-1]
+    for name, card_fn, module, x, cpu_x in (
+            ("rmvpe_salience", rmvpe.salience, rmvpe.load(), mel,
+             torch.from_numpy(np.ascontiguousarray(mel.T[None]))),
+            ("vr_mask", vr.mask, vr.model, ri, torch.from_numpy(ri))):
+        t0 = time.perf_counter()
+        got = card_fn(x)
+        card_s = time.perf_counter() - t0
+        with torch.no_grad(), exact_f32():
+            ref = copy.deepcopy(module).cpu()(cpu_x).numpy().reshape(got.shape)
+        err = float(np.abs(got - ref).max())
+        log(f"[binarize nets] {name} {tuple(got.shape)} of {wav_path.name} "
+            f"({len(wav) / BIN_SR:.2f} s, {frames} mel frames): card against CPU max_abs_err "
+            f"{err:.3g}, max_abs {float(np.abs(ref).max()):.4g} (tolerance {NET_CARD_VS_CPU}); "
+            f"card call {card_s * 1e3:.1f} ms")
+        check.require(err <= NET_CARD_VS_CPU, f"{name}: the card disagrees with the CPU")
+
+
+def run_binarization(lynx_cfg, work: Path, name_limit: str, device: str = "cuda",
+                     vr_widths: dict = VR_WIDTHS) -> dict:
+    """Phase 14: ``binarize`` through the port's binarizers on a synthetic raw
+    set.  The acoustic binarizer at the shipped settings (``pe:
+    parselmouth``, ``hnsep: world``) with the four curves and both
+    augmentations, its set read back through ``AcousticDataset``; the
+    variance binarizer with ``pe: rmvpe`` and ``hnsep: vr`` on random
+    full-width nets on the card, and those nets on the card against the
+    CPU.  Returns the launches of both binarizations (all 0)."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import acoustic_defaults, variance_defaults
+    from xiaoicesing_io_tpu_torch.data.dataset import AcousticDataset
+    from xiaoicesing_io_tpu_torch.preprocessing.acoustic_binarizer import AcousticBinarizer
+    from xiaoicesing_io_tpu_torch.preprocessing.variance_binarizer import VarianceBinarizer
+
+    t_phase = time.perf_counter()
+    dictionary = lynx_cfg["dictionary"]
+    wavs = raw_singing_set(work / "raw", dictionary)
+    raw = dict(raw_data_dir=[str(work / "raw" / s) for s in BIN_SPEAKERS],
+               speakers=list(BIN_SPEAKERS), num_spk=len(BIN_SPEAKERS), dictionary=dictionary,
+               test_prefixes=[f"{s}_00" for s in BIN_SPEAKERS])
+    log(f"[binarize] raw set: {len(wavs)} items of {BIN_SECONDS[0]}-{BIN_SECONDS[1]} s at "
+        f"{BIN_SR} Hz, {len(BIN_SPEAKERS)} speakers, every phone of {dictionary}; "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    random.seed(0)
+    cfg = acoustic_defaults()
+    cfg.update(raw, binary_data_dir=str(work / "acoustic"), use_energy_embed=True,
+               use_breathiness_embed=True, use_voicing_embed=True, use_tension_embed=True,
+               use_key_shift_embed=True, use_speed_embed=True)
+    cfg["augmentation_args"] = dict(
+        cfg["augmentation_args"],
+        random_pitch_shifting=dict(cfg["augmentation_args"]["random_pitch_shifting"],
+                                   enabled=True),
+        random_time_stretching=dict(cfg["augmentation_args"]["random_time_stretching"],
+                                    enabled=True))
+    _, items, launches = binarize_leg(f"acoustic pe={cfg['pe']} hnsep={cfg['hnsep']}",
+                                      AcousticBinarizer, cfg, device, len(wavs), name_limit)
+    check.require(any(float(it["key_shift"]) != 0 for it in items["train"])
+                  and any(float(it["speed"]) != 1 for it in items["train"]),
+                  "no augmented item was written")
+    dataset = AcousticDataset(cfg["binary_data_dir"], "train", cfg)
+    batch = dataset.collate(list(range(4)))
+    check.require(all(np.isfinite(v).all() for v in batch.values() if v.dtype.kind == "f"),
+                  "the collated batch is not finite")
+    log(f"[binarize acoustic] read back through AcousticDataset: {len(dataset)} train items; "
+        f"one batch of 4: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items()))
+
+    pe_ckpt, hnsep_ckpt = binarization_nets(work / "nets", device, vr_widths)
+    vcfg = variance_defaults()
+    vcfg.update(raw, binary_data_dir=str(work / "variance"), predict_energy=True,
+                predict_breathiness=True, predict_voicing=True, predict_tension=True,
+                pe="rmvpe", pe_ckpt=pe_ckpt, hnsep="vr", hnsep_ckpt=hnsep_ckpt)
+    log(f"[binarize variance] random nets: E2E0() at its defaults; CascadedNet "
+        f"{vr_widths} (the released config.yaml is not in the repository)")
+    binarizer, _, vlaunches = binarize_leg("variance pe=rmvpe hnsep=vr", VarianceBinarizer,
+                                           vcfg, device, len(wavs), name_limit)
+    check_nets_card_vs_cpu(binarizer, min(wavs, key=lambda p: p.stat().st_size), device)
+    log(f"[done 14] {time.perf_counter() - t_phase:.1f}s")
+    return {k: launches[k] + vlaunches[k] for k in launches}
+
+
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
@@ -2553,6 +2833,7 @@ def main(argv) -> int:
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
         training = run_training(lynx_cfg, work / "train", name_limit, per_call)
+        binarization = run_binarization(lynx_cfg, work / "binarize", name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sweep = run_sampler_sweep(name_limit)
@@ -2602,6 +2883,8 @@ def main(argv) -> int:
              eval_path_launches=evaluation["resblock_unit"],
              training_path_launches=training["resblock_unit"], library_ms=None, **k6),
     ]
+    for entry in kernels:
+        entry["binarize_path_launches"] = binarization[entry["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

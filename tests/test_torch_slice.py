@@ -261,7 +261,10 @@ for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep",
              "bench.reference", "bench.spread", "bench.trace", "inference.variance",
              "models.fastspeech.variance", "utils.spk_mix", "data", "data.hdf5",
              "data.indexed_dataset", "data.dataset", "training.metrics", "training.variance",
-             "eval.copy_synthesis", "models.vocoders.ddsp"):
+             "eval.copy_synthesis", "models.vocoders.ddsp", "preprocessing.acoustic_binarizer",
+             "preprocessing.variance_binarizer", "preprocessing.augmentation",
+             "preprocessing.align", "models.pe", "models.pe.rmvpe", "models.pe.harvest",
+             "models.hnsep_vr", "dsp.hnsep", "dsp.features", "utils.multiprocess"):
     assert pkg.__name__ + "." + name in names, name
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

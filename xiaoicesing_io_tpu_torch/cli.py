@@ -6,6 +6,7 @@
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
     python -m xiaoicesing_io_tpu_torch.cli eval --exp my_exp [--dataset valid] [--pesq] [--json out.json]
     python -m xiaoicesing_io_tpu_torch.cli train --config cfg.yaml --exp_name my_exp [--hparams k=v,...]
+    python -m xiaoicesing_io_tpu_torch.cli binarize --config cfg.yaml [--hparams k=v,...]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
@@ -22,8 +23,12 @@ binarized ``valid`` (or ``train``) set: mel MAE and MCD of an acoustic model
 variance model.  ``train`` trains the acoustic or variance model that the
 config's ``task_cls`` names on its ``binary_data_dir``, writing the merged
 config and reference-format checkpoints into ``<work_dir>/<exp_name>``;
-``--reset`` ignores a config saved there.  Every command runs on CUDA
-unless ``--device`` names another device.
+``--reset`` ignores a config saved there.  ``binarize`` turns the raw sets
+of ``raw_data_dir`` into ``binary_data_dir``'s ``{train,valid}.{data,meta}``,
+``spk_map.json`` and ``dictionary.txt`` with the binarizer whose class name
+``binarizer_cls`` ends in (``AcousticBinarizer`` or ``VarianceBinarizer``,
+whatever module path precedes it: nothing is imported from that path).
+Every command runs on CUDA unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -239,6 +244,33 @@ def train(args) -> None:
     build_trainer_from_config(cfg, device=args.device).fit()
 
 
+BINARIZERS = {
+    "AcousticBinarizer": "preprocessing.acoustic_binarizer",
+    "VarianceBinarizer": "preprocessing.variance_binarizer",
+}
+
+
+def binarizer_class(binarizer_cls: str):
+    """The port's binarizer for a ``binarizer_cls`` of any package, by its
+    class name alone."""
+    import importlib
+
+    name = str(binarizer_cls).rsplit(".", 1)[-1]
+    if name not in BINARIZERS:
+        raise ValueError(f"Unknown binarizer_cls {binarizer_cls!r}: the port has "
+                         f"{', '.join(BINARIZERS)}")
+    return getattr(importlib.import_module(f".{BINARIZERS[name]}", __package__), name)
+
+
+def binarize(args) -> None:
+    from .config import load_config
+
+    cfg = load_config(args.config, overrides=args.hparams)
+    cls = binarizer_class(cfg["binarizer_cls"])
+    print(f"| Binarizer: {cls.__module__}.{cls.__name__}")
+    cls(cfg, device=args.device).process()
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m xiaoicesing_io_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -330,6 +362,13 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--reset", action="store_true", help="ignore the saved work-dir config")
     tr.add_argument("--device", default=None, help="torch device (default: cuda)")
     tr.set_defaults(func=train)
+
+    bi = sub.add_parser("binarize", help="Binarize the raw sets a config names")
+    bi.add_argument("--config", required=True, help="configuration file")
+    bi.add_argument("--hparams", default="", help="key=value overrides, comma separated")
+    bi.add_argument("--device", default=None,
+                    help="torch device of RMVPE and the vocal remover (default: cuda)")
+    bi.set_defaults(func=binarize)
     return parser
 
 

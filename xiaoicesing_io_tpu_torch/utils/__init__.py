@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import os
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,6 +33,33 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run the port on the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """Run the block's f32 products, convolutions and cuDNN recurrences in
+    full f32 (TF32 off); the process's settings come back afterwards."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def load_reference_weights(module: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
+                           unused: Iterable[str] = ()) -> None:
+    """``module.load_state_dict(state_dict)`` that lets a state dict lack the
+    BatchNorm step counters and the tensors under the ``unused`` prefixes
+    (modules of the reference that its forward pass never reads); any other
+    missing or unexpected name raises."""
+    missing, unexpected = module.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")
+               and not k.startswith(tuple(unused))]
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing[:8]}, unexpected "
+                       f"{unexpected[:8]}")
 
 
 def generator_from_seed(seed: Optional[int], device: torch.device,

@@ -11,6 +11,14 @@ inverting the JAX package's torch -> flax layout rules:
   weight ``[in, out, k]``, taps un-flipped
 * Embed ``embedding``                  -> ``Embedding`` weight
 * LayerNorm ``scale`` / ``bias``       -> ``weight`` / ``bias``
+* 2-D Conv kernel ``[kh, kw, in, out]`` -> ``Conv2d`` weight ``[out, in, kh, kw]``
+* RMVPE's transposed-conv kernel ``[kh, kw, in, out]``, taps flipped ->
+  ``ConvTranspose2d`` weight ``[in, out, kh, kw]``, taps un-flipped
+* BatchNorm ``scale / bias / mean / var`` -> ``weight / bias / running_mean /
+  running_var``
+* GRU / LSTM ``w_ih`` ``[in, G*H]`` and ``w_hh`` ``[H, G*H]`` (torch's gate
+  order) -> ``weight_ih_l0`` / ``weight_hh_l0`` ``[G*H, in]``, the backward
+  direction under ``_reverse``
 
 The JAX package is not imported: its trees arrive as nested dicts of arrays.
 """
@@ -241,4 +249,107 @@ def nsf_hifigan_state_dict_from_jax(params: dict, vcfg) -> Dict[str, torch.Tenso
         else:
             for j in range(len(vcfg.resblock_dilation_sizes[bi % len(vcfg.resblock_kernel_sizes)])):
                 _conv(out, f"resblocks.{bi}.convs.{j}", block[f"convs_{j}"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the binarizers' nets: RMVPE (E2E0) and the vocal remover (CascadedNet)
+# ---------------------------------------------------------------------------
+
+def _conv2d(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _batch_norm(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+    out[f"{name}.running_mean"] = _t(p["mean"])
+    out[f"{name}.running_var"] = _t(p["var"])
+
+
+def _recurrent(out: dict, name: str, fwd: dict, bwd: dict) -> None:
+    for suffix, p in (("", fwd), ("_reverse", bwd)):
+        out[f"{name}.weight_ih_l0{suffix}"] = _t(np.asarray(p["w_ih"]).T)
+        out[f"{name}.weight_hh_l0{suffix}"] = _t(np.asarray(p["w_hh"]).T)
+        out[f"{name}.bias_ih_l0{suffix}"] = _t(p["b_ih"])
+        out[f"{name}.bias_hh_l0{suffix}"] = _t(p["b_hh"])
+
+
+def _conv_block_res(out: dict, name: str, p: dict) -> None:
+    _conv2d(out, f"{name}.conv.0", p["conv1"])
+    _batch_norm(out, f"{name}.conv.1", p["bn1"])
+    _conv2d(out, f"{name}.conv.3", p["conv2"])
+    _batch_norm(out, f"{name}.conv.4", p["bn2"])
+    if "shortcut" in p:
+        _conv2d(out, f"{name}.shortcut", p["shortcut"])
+
+
+def rmvpe_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``E2E0`` tree -> the reference ``E2E0`` state dict (the
+    inverse of the JAX package's ``convert_rmvpe``); depth and width follow
+    the tree.  ``unet.tf`` has no JAX counterpart and is left out."""
+    p = _root(params)
+    out: Dict[str, torch.Tensor] = {}
+    _batch_norm(out, "unet.encoder.bn", p["in_bn"])
+
+    def blocks(layer: dict, name: str) -> None:
+        for j in range(sum(k.startswith("conv_") for k in layer)):
+            _conv_block_res(out, f"{name}.{j}", layer[f"conv_{j}"])
+
+    for i in range(sum(k.startswith("enc_") for k in p)):
+        blocks(p[f"enc_{i}"], f"unet.encoder.layers.{i}.conv")
+    for i in range(sum(k.startswith("inter_") for k in p)):
+        blocks(p[f"inter_{i}"], f"unet.intermediate.layers.{i}.conv")
+    for i in range(sum(k.startswith("dec_") for k in p)):
+        name = f"unet.decoder.layers.{i}"
+        kernel = np.asarray(p[f"dec_{i}"]["tconv_kernel"])  # [kh, kw, in, out], taps flipped
+        out[f"{name}.conv1.0.weight"] = _t(kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        _batch_norm(out, f"{name}.conv1.1", p[f"dec_{i}"]["tbn"])
+        blocks(p[f"dec_{i}"], f"{name}.conv2")
+    _conv2d(out, "cnn", p["cnn"])
+    _recurrent(out, "fc.0.gru", p["gru"]["fwd"], p["gru"]["bwd"])
+    _linear(out, "fc.1", p["fc"])
+    return out
+
+
+def _conv_bn_activ(out: dict, name: str, p: dict) -> None:
+    _conv2d(out, f"{name}.conv.0", p["conv"])
+    _batch_norm(out, f"{name}.conv.1", p["bn"])
+
+
+def _vr_basenet(out: dict, name: str, p: dict) -> None:
+    _conv_bn_activ(out, f"{name}.enc1", p["enc1"])
+    for enc in ("enc2", "enc3", "enc4", "enc5"):
+        _conv_bn_activ(out, f"{name}.{enc}.conv1", p[enc]["conv1"])
+        _conv_bn_activ(out, f"{name}.{enc}.conv2", p[enc]["conv2"])
+    aspp = p["aspp"]
+    _conv_bn_activ(out, f"{name}.aspp.conv1.1", aspp["conv1"])
+    for conv in ("conv2", "conv3", "conv4", "conv5", "bottleneck"):
+        _conv_bn_activ(out, f"{name}.aspp.{conv}", aspp[conv])
+    for dec in ("dec4", "dec3", "dec2", "dec1"):
+        _conv_bn_activ(out, f"{name}.{dec}.conv1", p[dec]["conv1"])
+    lstm = p["lstm_dec2"]
+    _conv_bn_activ(out, f"{name}.lstm_dec2.conv", lstm["conv"])
+    _recurrent(out, f"{name}.lstm_dec2.lstm", lstm["fwd"], lstm["bwd"])
+    _linear(out, f"{name}.lstm_dec2.dense.0", lstm["dense"])
+    _batch_norm(out, f"{name}.lstm_dec2.dense.1", lstm["dense_bn"])
+
+
+def cascaded_net_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``CascadedNet`` tree -> the reference state dict (the inverse of
+    the JAX package's ``convert_cascaded_net``).  The reference's training
+    head ``aux_out`` has no JAX counterpart and is left out."""
+    p = _root(params)
+    out: Dict[str, torch.Tensor] = {}
+    for jax_name, name in (("stg1_low", "stg1_low_band_net.0"),
+                           ("stg1_high", "stg1_high_band_net"),
+                           ("stg2_low", "stg2_low_band_net.0"),
+                           ("stg2_high", "stg2_high_band_net"),
+                           ("stg3_full", "stg3_full_band_net")):
+        _vr_basenet(out, name, p[jax_name])
+    _conv_bn_activ(out, "stg1_low_band_net.1", p["stg1_low_out"])
+    _conv_bn_activ(out, "stg2_low_band_net.1", p["stg2_low_out"])
+    _conv2d(out, "out", p["out"])
     return out

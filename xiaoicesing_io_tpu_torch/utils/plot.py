@@ -1,8 +1,9 @@
 """Validation figures and audio for TensorBoard (counterpart of the JAX
 package's ``utils/plot.py``): the mel triptych (|error| / GT / prediction),
-curves, duration alignment, pitch against notes, and audio through a
-writer.  matplotlib and tensorboardX are imported when first used;
-:func:`figures_available` says up front whether matplotlib is installed.
+curves, duration alignment, pitch against notes, audio through a writer,
+and the binarizers' distribution bar chart.  matplotlib and tensorboardX
+are imported when first used; :func:`figures_available` says up front
+whether matplotlib is installed.
 """
 
 from __future__ import annotations
@@ -23,6 +24,19 @@ def _plt():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def distribution_to_figure(title, x_label, y_label, items, values, zoom=0.8):
+    """A bar chart of ``values`` over ``items``; None without matplotlib."""
+    if not figures_available():
+        return None
+    plt = _plt()
+    fig = plt.figure(figsize=(int(len(items) * zoom), 10))
+    plt.bar(x=items, height=values)
+    plt.xlabel(x_label)
+    plt.ylabel(y_label)
+    plt.title(title)
+    return fig
 
 
 def spec_diff_to_figure(gt_spec, pred_spec, vmin=None, vmax=None, title=None):
