@@ -22,7 +22,8 @@ Phases, each printed on its own line:
      per stage its time, the unfused bf16 cuDNN chain's, ``gemm_library_ms``
      (each conv's taps as one cuBLAS product ``[rows, L] @ [L, k L]``, the
      products alone), the host microseconds per call and the device split of
-     its leaky-ReLU pass, first convs and second convs;
+     its leaky-ReLU pass, first convs and second convs; then both stages at
+     B=2 with T off the tile (873 frames), as serving's vocoder groups run;
   5. K4 ``wavenet_block`` against its plain version at three edge shapes (T
      off the tile, d 64, C 192 and 256) and at the WaveNet path's shape (B=4,
      T=2048, C=512) for each dilation d of its cycle, 1, 2, 4, 8; its
@@ -175,6 +176,31 @@ Phases, each printed on its own line:
      raw and written items per second, the seconds of each stage (load,
      mel, pitch, separation, curves, augmentation, write) and the card's
      peak memory.
+ 15. (after phase 7, on the experiments of phases 6 and 7) serving: the
+     sample ``.ds`` through ``run_inference(data_parallel=True)``
+     (``inference/serving.py``: segments stacked by 256-frame bucket, each
+     chunk one synthesis call, the vocoder one call a distinct length) on
+     each experiment, with the launch counters zeroed just before each call
+     and read just after: K1 (LYNXNet) or K4 (WaveNet) once per layer per
+     step per chunk, K2 twice and K6 27 times per length group, nothing else
+     (each kernel's ``serve_path_launches``, the two runs summed).  Each
+     segment's mel must be within ``bench/check.py``'s bars of the segment
+     run alone through ``forward_model`` on the kernel path from the same
+     noise row; each wav finite and frames x hop long, the song its segments
+     placed; each wav of ``vocode`` (seed None, K2 and K6 at B > 1 off the
+     tile) within the wav bar of its mel vocoded alone, and each K2 and K6
+     launch of a group of 2-4 rows bit for bit its rows' launches alone.
+     The synchronising CUDA calls of ``synthesize_mels``
+     (``torch.cuda.set_sync_debug_mode``) are printed by source line.  Then
+     K1 and K4 at the largest chunk serving sends them (64 x 768 frames)
+     against their plain versions; then ``samples/02_一半一半.ds`` (58
+     segments) on the LYNXNet experiment, serial and ``data_parallel=True``
+     in turns after a warm-up of dp (audio-s/s, chunks, vocoder calls, peak
+     memory, each run's host seconds by stage) and its ``vocode`` groups
+     (up to 20 rows) checked as above; then
+     ``deployment/benchmarks.py``'s ``bench_acoustic``
+     (on the phase 6 configuration) and ``bench_vocoder`` at their defaults
+     (ms per run).
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -249,13 +275,15 @@ calls, K4's the mean over its four dilations, K6's the sum over the 27
 units of stages 2-4; ``launches`` are wrapper calls in the ``.ds`` run of
 the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
 for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
-K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12).
+K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12;
+every entry carries ``serve_path_launches`` from phase 15).
 The last line is ``{"ok": true,
 "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import random
@@ -523,6 +551,9 @@ def cudnn_bf16_stage(x, convs, biases, specs):
     return acc / len(specs)
 
 
+K2_OFF_TILE_FRAMES = 873  # a mel length whose stage rows are no multiple of a tile
+
+
 def check_k2(reps: int = 3) -> dict:
     import torch
 
@@ -561,6 +592,16 @@ def check_k2(reps: int = 3) -> dict:
             total[key] += v
         by = by_s if by_s == "bytes" else by
         del x, w, b, b16, convs, rows
+    # serving stacks equal-length mels, so the stages also run at B > 1 with T off the tile
+    for stage, (T, L) in enumerate(((K2_OFF_TILE_FRAMES * 8, 256),
+                                    (K2_OFF_TILE_FRAMES * 64, 128))):
+        x, w, b, specs = k2_inputs(2, T, L, seed=10 + stage)
+        got = K2.fused_resblock_stage(x, w, b, specs)
+        torch.cuda.synchronize()
+        err = compare(f"K2 fused_resblock_stage stage {stage} off the tile [B=2,T={T},L={L}]",
+                      got, K2.fused_resblock_stage_plain(x, w, b, specs))
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        del x, w, b, got
     total["host_us"] /= 2
     log(f"[K2] stages 0 + 1: ms={total['ms']:.4f} plain_ms={total['plain_ms']:.4f} "
         f"cudnn_bf16_ms={total['cudnn_bf16_ms']:.4f} gemm_library_ms="
@@ -1404,8 +1445,8 @@ def run_configuration(label: str, cell: str, work: Path, name_limit: str,
                       kernels: dict) -> tuple:
     """Phases 6 and 7: a random full-width experiment of the bench's cell
     ``cell``, the ``.ds`` run, its check against the f32 reference and the batched
-    timing; returns the ``.ds`` run's launch counts, the configuration, the
-    wav and the vocoder's launches per call.  Every kernel must launch as
+    timing; returns the ``.ds`` run's launch counts, the runner (phase 15
+    serves on it), the wav and the vocoder's launches per call.  Every kernel must launch as
     ``bench/check.py:implied_launches`` says per segment: the denoiser's (K1
     for LYNXNet, K4 for WaveNet) once per layer per sampler step, K2 and K6
     as the vocoder's layout says, every other kernel never."""
@@ -1426,10 +1467,8 @@ def run_configuration(label: str, cell: str, work: Path, name_limit: str,
     check.check_launches(launches, implied, True, f"the {label} .ds run")
     check_against_f32(runner, params, rec)
     batched_timing(runner, cell, name_limit, label, kernels)
-    cfg = runner.cfg
-    del runner
     torch.cuda.empty_cache()
-    return launches, cfg, wav, per_call
+    return launches, runner, wav, per_call
 
 
 # ---------------------------------------------------------------------------
@@ -2750,6 +2789,384 @@ def run_binarization(lynx_cfg, work: Path, name_limit: str, device: str = "cuda"
     return {k: launches[k] + vlaunches[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# serving: run_inference(data_parallel=True), bucket-batched (K1 or K4; K2, K6)
+# ---------------------------------------------------------------------------
+
+SERVE_TIMING = "samples/02_一半一半.ds"
+SERVE_MAX_CHUNK = (64, 768)    # the most rows of a chunk (64 x 768 = 49152 frames a call)
+
+
+@contextlib.contextmanager
+def wrapped_calls(targets, wrap):
+    """For the length of the block each call ``object.attribute`` of
+    ``targets`` (``(label, object, attribute)``) runs as
+    ``wrap(label)(call)``."""
+    from xiaoicesing_io_tpu_torch.bench.trace import _wrapped
+
+    undo = [_wrapped(obj, attr, wrap(label)) for label, obj, attr in targets]
+    try:
+        yield
+    finally:
+        for u in reversed(undo):
+            u()
+
+
+def record_serving():
+    """For the length of the block, record what ``DataParallelSynthesizer``
+    returns (``synthesize_mels``: mels and f0s; ``vocode``: wavs) and the
+    song's wav as it goes to ``save_wav``.  -> (context, record)."""
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer
+    from xiaoicesing_io_tpu_torch.utils import audio
+
+    rec = {}
+
+    def keep(name):
+        def wrap(fn):
+            def recorded(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                rec[name] = (args, out)
+                return out
+            return recorded
+        return wrap
+    targets = (("mels", DataParallelSynthesizer, "synthesize_mels"),
+               ("wavs", DataParallelSynthesizer, "vocode"), ("song", audio, "save_wav"))
+    return wrapped_calls(targets, keep), rec
+
+
+def serve_syncs(runner, params) -> str:
+    """The synchronising CUDA calls ``synthesize_mels`` makes on ``params``
+    (``torch.cuda.set_sync_debug_mode``), counted by the innermost line of
+    the port's code that made them; a warning raised outside the port (the
+    switch of the debug mode itself can raise one) is counted apart."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench.cells import _silent
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer
+
+    where, outside = collections.Counter(), collections.Counter()
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            ours = [f for f in stack if "xiaoicesing_io_tpu_torch" in f.filename]
+            if ours:
+                where[f"{Path(ours[-1].filename).name}:{ours[-1].lineno} ({ours[-1].line})"] += 1
+            else:
+                outside[" < ".join(f"{Path(f.filename).name}:{f.lineno} ({f.line})"
+                                   for f in reversed(stack[-2:]))] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _silent(DataParallelSynthesizer(runner).synthesize_mels, params, seed=1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return (f"{sum(where.values())} {dict(where)}; outside the port's code: "
+            f"{sum(outside.values())} {dict(outside)}")
+
+
+def stage_clock(targets):
+    """For the length of the block, host seconds spent in each call of
+    ``targets`` (``(label, object, attribute)``), summed by label.
+    -> (context, seconds)."""
+    import collections
+
+    seconds = collections.defaultdict(float)
+
+    def clock(label):
+        def wrap(fn):
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    seconds[label] += time.perf_counter() - t0
+            return timed
+        return wrap
+    return wrapped_calls(targets, clock), seconds
+
+
+def check_serving(label: str, runner, work: Path, name_limit: str) -> dict:
+    """Phase 15 on one experiment: the sample ``.ds`` through
+    ``run_inference(data_parallel=True)`` with the launch counters zeroed
+    just before it and read just after.  The denoiser's kernel must launch
+    once per layer per step per chunk, K2 and K6 one vocoder call's worth
+    per length group, nothing else; each segment's mel must be within
+    ``bench/check.py``'s bars of the segment run alone through the kernel
+    path from the same noise row; each wav finite and frames x hop long, the
+    song its segments placed; ``vocode``'s groups as
+    :func:`check_vocode_groups` holds them.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check, reference
+    from xiaoicesing_io_tpu_torch.bench.cells import _silent
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.inference.serving import plan_chunks
+    from xiaoicesing_io_tpu_torch.utils import generator_from_seed
+
+    params = load_ds(ROOT / SAMPLE)
+    batches = [_silent(runner.preprocess_input, p) for p in params]
+    lengths = [b["mel2ph"].shape[1] for b in batches]
+    plan = plan_chunks(lengths)
+    groups = len(set(lengths))
+    implied = check.implied_launches(runner, len(plan), groups)
+    hooks, rec = record_serving()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    with hooks:
+        _silent(runner.run_inference, params, out_dir=work, title="serve", seed=0,
+                data_parallel=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = check.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"[serve {label}] {SAMPLE}: {len(params)} segments in buckets "
+        f"{[(b, len(i)) for b, _, i in plan]} -> {len(plan)} chunks, {groups} vocoder groups "
+        f"(distinct lengths); launches {launches}; expected "
+        f"{ {k: v for k, v in implied.items() if v} } (layers x steps x chunks; per group's "
+        f"vocoder call {check.vocoder_calls(runner.vocoder)}), every other kernel 0")
+    check.check_launches(launches, implied, True, f"the {label} serving run")
+
+    mels, f0s = rec["mels"][1]
+    wavs = rec["wavs"][1]
+    hop, sr, bins = (runner.cfg["hop_size"], runner.cfg["audio_sample_rate"],
+                     runner.cfg["audio_num_mel_bins"])
+    for n, mel, wav in zip(lengths, mels, wavs, strict=True):
+        check.require(mel.shape == (n, bins) and wav.shape == (n * hop,)
+                      and bool(np.isfinite(wav).all()),
+                      f"a segment of {n} frames gave mel {mel.shape}, wav {wav.shape}")
+    song = np.asarray(rec["song"][0][0])
+    placed = reference.place(wavs, [p.get("offset", 0.0) for p in params], sr)
+    check.require(song.shape == placed.shape and np.abs(song - placed).max() < 1e-9,
+                  "the song's wav is not its segments' wavs placed at their offsets")
+
+    worst = {"mel_rel_err": 0.0, "mel_corr": 1.0}
+    for bucket, chunk_no, idxs in plan:  # each chunk's noise, drawn as the chunk drew it
+        noise = torch.randn((len(idxs), 1, bucket, bins), device=runner.device,
+                            generator=generator_from_seed(0, runner.device,
+                                                          salt=bucket * 4099 + chunk_no))
+        for row, i in enumerate(idxs):
+            alone = runner.forward_model(batches[i], noise=noise[row:row + 1].cpu().numpy())
+            got = check.compare_mel(mels[i], alone[0])
+            check.require(got["mel_ok"], f"segment {i}: the batched mel disagrees with the "
+                                         f"segment alone: {got}")
+            worst["mel_rel_err"] = max(worst["mel_rel_err"], got["mel_rel_err"])
+            worst["mel_corr"] = min(worst["mel_corr"], got["mel_corr"])
+    check_vocode_groups(f"serve {label}", runner, mels, f0s)
+    audio = sum(lengths) * hop / sr
+    log(f"[serve {label}] card={name_limit} {seconds:.3f}s for {audio:.2f} s of audio "
+        f"({audio / seconds:.4f} audio-s/s, one run, wav written); peak_mem_gib={peak:.3f} "
+        f"(above {held / 2 ** 30:.3f} held); each segment against itself alone on the kernel "
+        f"path, same noise row: worst mel rel err {worst['mel_rel_err']:.6g}, corr "
+        f"{worst['mel_corr']:.8f} (tolerance: {check.tolerance_text()}); every wav finite, "
+        f"frames*{hop} samples, the song its segments placed")
+    log(f"[serve {label} syncs] synchronising CUDA calls in synthesize_mels: "
+        f"{serve_syncs(runner, params)}")
+    return launches
+
+
+def vocoder_row_launches(vocoder, mel, f0):
+    """One vocoder call on the stacked rows ``mel`` ``[B, T, M]`` (a serving
+    group) with each K2 and K6 launch rerun on each row alone.  A row's
+    products accumulate in the same order wherever its tiles fall, so each
+    rerun must give its row of the batched launch bit for bit.  -> (largest
+    difference, launches checked), by kernel."""
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_resblock as K6
+    from xiaoicesing_io_tpu_torch.ops.cuda import hifigan_stage as K2
+
+    worst = {"fused_resblock_stage": 0.0, "resblock_unit": 0.0}
+    checked = dict.fromkeys(worst, 0)
+
+    def by_row(name):
+        def wrap(launch):
+            def rerun(x, *args):
+                out = launch(x, *args)
+                for r in range(x.shape[0]):
+                    alone = launch(x[r:r + 1].clone(), *args)
+                    diff = (alone.float() - out[r:r + 1].float()).abs().max().item()
+                    worst[name] = max(worst[name], diff)
+                checked[name] += 1
+                return out
+            return rerun
+        return wrap
+    with wrapped_calls((("fused_resblock_stage", K2, "_launch"),
+                        ("resblock_unit", K6, "_launch")), by_row):
+        vocoder.spec2wav_torch(mel, f0)
+    return worst, checked
+
+
+def check_vocode_groups(label: str, runner, mels, f0s) -> None:
+    """``DataParallelSynthesizer.vocode`` with the deterministic source
+    (``seed=None``): each group of equal-length mels is one vocoder call, so
+    K2 and K6 run at B > 1 with T off the tile.  Each wav is held against its
+    mel vocoded alone (``run_vocoder``) at ``bench/check.py``'s wav bar, and
+    the largest group of 2-4 rows goes through :func:`vocoder_row_launches`,
+    which must find every K2 and K6 launch bit for bit its rows alone."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer
+
+    wavs = DataParallelSynthesizer(runner).vocode(mels, f0s, seed=None)
+    sizes = collections.Counter(m.shape[0] for m in mels)
+    worst = {"wav_max_abs_err": 0.0, "wav_corr": 1.0}
+    for i, (mel, f0, wav) in enumerate(zip(mels, f0s, wavs, strict=True)):
+        got = check.compare_wav(wav, runner.run_vocoder(mel[None], f0[None], seed=None))
+        check.require(got["wav_ok"], f"segment {i} ({mel.shape[0]} frames, in a vocoder group "
+                                     f"of {sizes[mel.shape[0]]}): the grouped wav disagrees "
+                                     f"with its mel vocoded alone: {got}")
+        worst["wav_max_abs_err"] = max(worst["wav_max_abs_err"], got["wav_max_abs_err"])
+        worst["wav_corr"] = min(worst["wav_corr"], got["wav_corr"])
+    log(f"[{label} vocode groups] {len(mels)} mels in {len(sizes)} groups of sizes "
+        f"{sorted(sizes.values(), reverse=True)}; each grouped wav against its mel vocoded "
+        f"alone, seed None: worst max abs err {worst['wav_max_abs_err']:.6g}, corr "
+        f"{worst['wav_corr']:.8f} (tolerance: wav corr > {check.WAV_TOL_CORR})")
+    n = max((n for n, k in sizes.items() if 2 <= k <= 4), key=sizes.get, default=None)
+    if n is None:
+        return
+    idxs = [i for i, m in enumerate(mels) if m.shape[0] == n]
+    dev = runner.device
+    diff, checked = vocoder_row_launches(
+        runner.vocoder, torch.as_tensor(np.stack([mels[i] for i in idxs]), device=dev),
+        torch.as_tensor(np.stack([f0s[i] for i in idxs]), device=dev))
+    check.require(all(checked.values()) and not any(diff.values()),
+                  f"a K2 or K6 launch on a group of {len(idxs)} rows of {n} frames differs "
+                  f"from the launch on a row alone: {diff} over {checked} launches")
+    log(f"[{label} vocoder rows] group of {len(idxs)} x {n} frames: each K2 and K6 launch "
+        f"rerun on each row alone, bit for bit the batched launch's row ({checked} launches, "
+        f"largest difference {diff})")
+
+
+def check_serve_max_chunk() -> None:
+    """K1 and K4 at the largest chunk serving sends them (64 x 768 frames)
+    against their plain versions."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.ops.cuda import lynx_conv as K1
+    from xiaoicesing_io_tpu_torch.ops.cuda import wavenet_block as K4
+
+    B, T = SERVE_MAX_CHUNK
+    x, params = k1_inputs(B, T, seed=1)
+    got = K1.lynx_conv_module(x, K1.prepare_weights(*params), kernel_size=31)
+    torch.cuda.synchronize()
+    compare(f"K1 lynx_conv_module at the largest serving chunk [B={B},T={T}]", got,
+            K1.lynx_conv_module_plain(x, *params, kernel_size=31))
+    del x, params, got
+    y, cond, params = k4_inputs(B, T, seed=1)
+    got = K4.wavenet_block(y, cond, K4.prepare_weights(*params), dilation=8)
+    torch.cuda.synchronize()
+    compare(f"K4 wavenet_block at the largest serving chunk [B={B},T={T},d=8]", got,
+            K4.wavenet_block_plain(y, cond, *params, dilation=8))
+    del y, cond, params, got
+    torch.cuda.empty_cache()
+
+
+def serve_timing(runner, work: Path, name_limit: str) -> None:
+    """``SERVE_TIMING`` through ``run_inference``, serial and
+    ``data_parallel=True``: a warm-up of dp (the serial path has run since
+    phase 6), then in turns (serial, dp, dp, serial); audio-s/s of each
+    run, chunks, vocoder calls, peak memory,
+    and the host seconds of each run's stages (preprocessing, synthesis,
+    vocoder; the rest is placement, crossfades and the wav's write).  The
+    synthesis and vocoder calls end in a host fetch, so the clock adds no
+    synchronisation."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench.cells import _silent
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer, plan_chunks
+
+    params = load_ds(ROOT / SERVE_TIMING)
+    lengths = [_silent(runner.preprocess_input, p)["mel2ph"].shape[1] for p in params]
+    audio = sum(lengths) * runner.cfg["hop_size"] / runner.cfg["audio_sample_rate"]
+    plan = plan_chunks(lengths)
+    stages = {False: (("preprocess", runner, "preprocess_input"),
+                      ("synthesis", runner, "forward_model"),
+                      ("vocoder", runner, "run_vocoder")),
+              True: (("preprocess", runner, "preprocess_input"),
+                     ("synthesis", DataParallelSynthesizer, "synthesize_mels"),
+                     ("vocoder", DataParallelSynthesizer, "vocode"))}
+    rates = {False: [], True: []}
+    splits, peaks = {}, {}
+    for dp in (True, False, True, True, False):
+        clock, seconds = stage_clock(stages[dp])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with clock:
+            _silent(runner.run_inference, params, out_dir=work, title="timing", seed=0,
+                    data_parallel=dp)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        rates[dp].append(audio / total)
+        splits[dp] = dict(seconds, rest=total - sum(seconds.values()))
+        peaks[dp] = max(peaks.get(dp, 0.0), (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+
+    def split(dp):
+        return " ".join(f"{k}={v:.3f}s" for k, v in splits[dp].items())
+    serial, dp = rates[False], rates[True][1:]
+    log(f"[serve timing] card={name_limit} {SERVE_TIMING}: {len(params)} segments, "
+        f"{audio:.2f} s of audio; serial run_inference: {len(params)} synthesis and "
+        f"{len(params)} vocoder calls, audio_s_per_s {' '.join(f'{r:.4f}' for r in serial)}, "
+        f"peak_mem_gib {peaks[False]:.3f}, last run {split(False)}; data_parallel=True: "
+        f"{len(plan)} chunks {[(b, len(i)) for b, _, i in plan]}, {len(set(lengths))} vocoder "
+        f"calls, audio_s_per_s {' '.join(f'{r:.4f}' for r in dp)}, peak_mem_gib "
+        f"{peaks[True]:.3f}, last run {split(True)}; dp / serial {sum(dp) / sum(serial):.4f} "
+        f"(one run each in turns after a dp warm-up at {rates[True][0]:.4f}; wavs written)")
+
+
+def check_timing_vocode(runner) -> None:
+    """:func:`check_vocode_groups` on ``SERVE_TIMING``'s mels: 58 segments
+    in 19 lengths, so larger vocoder groups than the sample's."""
+    from xiaoicesing_io_tpu_torch.bench.cells import _silent
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer
+
+    params = load_ds(ROOT / SERVE_TIMING)
+    mels, f0s = _silent(DataParallelSynthesizer(runner).synthesize_mels, params, seed=0)
+    check_vocode_groups("serve timing", runner, mels, f0s)
+
+
+def run_serving(lynx_runner, wavenet_runner, work: Path, name_limit: str) -> dict:
+    """Phase 15: :func:`check_serving` on the experiments of phases 6 and 7,
+    K1 and K4 at the largest serving chunk, the serial-vs-dp timing on
+    ``SERVE_TIMING`` (LYNXNet) with its ``vocode`` groups checked, and the
+    deployment benchmarks at their defaults.  Returns the serving runs' launches, summed."""
+    from xiaoicesing_io_tpu_torch.deployment.benchmarks import bench_acoustic, bench_vocoder
+
+    t_phase = time.perf_counter()
+    lynx = check_serving("lynx_reflow", lynx_runner, work / "lynx", name_limit)
+    wavenet = check_serving("wavenet_ddpm", wavenet_runner, work / "wavenet", name_limit)
+    check_serve_max_chunk()
+    serve_timing(lynx_runner, work / "timing", name_limit)
+    check_timing_vocode(lynx_runner)
+    acoustic_s = bench_acoustic(lynx_runner.cfg, device="cuda")
+    vocoder_s = bench_vocoder(device="cuda")
+    log(f"[deploy bench] card={name_limit} bench_acoustic (LYNXNet 1024 x 6, reflow, 10 tokens, "
+        f"100 frames, 20 steps, bf16 modules): {acoustic_s * 1e3:.4f} ms/run; bench_vocoder "
+        f"(shipped NSF-HiFiGAN, 1000 frames, bf16 stock generator): {vocoder_s * 1e3:.4f} "
+        f"ms/run (20 runs each after a warm-up)")
+    log(f"[done 15] {time.perf_counter() - t_phase:.1f}s")
+    return {k: lynx[k] + wavenet[k] for k in lynx}
+
+
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
@@ -2823,12 +3240,16 @@ def main(argv) -> int:
     work = ROOT / ".work" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        lynx, lynx_cfg, ds_wav, per_call = run_configuration(
+        lynx, lynx_runner, ds_wav, per_call = run_configuration(
             "lynx_reflow", "lynx_reflow_b4_t2048", work / "lynx", name_limit,
             {"K1": k1, "K2": k2, "K6": k6})
-        wavenet, _, _, _ = run_configuration(
+        wavenet, wavenet_runner, _, _ = run_configuration(
             "wavenet_ddpm", "wavenet_ddpm_b4_t2048", work / "wavenet", name_limit,
             {"K4": k4, "K2": k2, "K6": k6})
+        serving = run_serving(lynx_runner, wavenet_runner, work / "serve", name_limit)
+        lynx_cfg = lynx_runner.cfg
+        del lynx_runner, wavenet_runner
+        torch.cuda.empty_cache()
         variance, variance_cfg = run_variance_pipeline(work / "pipeline", name_limit)
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
@@ -2885,6 +3306,7 @@ def main(argv) -> int:
     ]
     for entry in kernels:
         entry["binarize_path_launches"] = binarization[entry["name"]]
+        entry["serve_path_launches"] = serving[entry["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,21 @@
 """Command line of the port.
 
-    python -m xiaoicesing_io_tpu_torch.cli infer acoustic song.ds --exp my_exp [--device cpu]
+    python -m xiaoicesing_io_tpu_torch.cli infer acoustic song.ds --exp my_exp [--dp] [--device cpu]
     python -m xiaoicesing_io_tpu_torch.cli infer variance song.ds --exp var_exp [--predict dur]
     python -m xiaoicesing_io_tpu_torch.cli val_vocoder a.wav b.wav --config cfg.yaml [--out DIR]
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
     python -m xiaoicesing_io_tpu_torch.cli eval --exp my_exp [--dataset valid] [--pesq] [--json out.json]
     python -m xiaoicesing_io_tpu_torch.cli train --config cfg.yaml --exp_name my_exp [--hparams k=v,...]
     python -m xiaoicesing_io_tpu_torch.cli binarize --config cfg.yaml [--hparams k=v,...]
+    python -m xiaoicesing_io_tpu_torch.cli drop_spk my_exp --spk name [--fill zeros] [--out PATH]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
 ``model_ckpt_steps_*.ckpt``; the config's ``vocoder_ckpt`` names the
 NSF-HiFiGAN ``model.ckpt`` (with its ``config.json`` beside it).
+``infer acoustic --dp`` synthesises the segments in bucket batches and
+vocodes them in groups of equal length (serving mode: one noise stream a
+chunk in place of per-segment seeds).
 ``infer variance`` predicts what each segment lacks (or what ``--predict``
 names: dur, pitch, energy, breathiness, voicing, tension) and writes the
 ``.ds`` with the predictions beside the input.  ``val_vocoder``
@@ -28,6 +32,9 @@ of ``raw_data_dir`` into ``binary_data_dir``'s ``{train,valid}.{data,meta}``,
 ``spk_map.json`` and ``dictionary.txt`` with the binarizer whose class name
 ``binarizer_cls`` ends in (``AcousticBinarizer`` or ``VarianceBinarizer``,
 whatever module path precedes it: nothing is imported from that path).
+``drop_spk`` scrubs speakers from the speaker table of an experiment's
+latest checkpoint (in place with ``--overwrite``, or into ``--out``); the
+edit is host work, so it alone takes no ``--device``.
 Every command runs on CUDA unless ``--device`` names another device.
 """
 
@@ -99,7 +106,8 @@ def infer_acoustic(args) -> None:
                                      device=args.device)
     out_dir = pathlib.Path(args.out) if args.out else pathlib.Path(args.proj).parent
     runner.run_inference(params, out_dir=out_dir, title=args.title or pathlib.Path(args.proj).stem,
-                         num_runs=args.num, seed=args.seed, save_mel=args.mel)
+                         num_runs=args.num, seed=args.seed, save_mel=args.mel,
+                         data_parallel=args.dp)
 
 
 def infer_variance(args) -> None:
@@ -271,6 +279,14 @@ def binarize(args) -> None:
     cls(cfg, device=args.device).process()
 
 
+def drop_spk(args) -> None:
+    from .deployment.drop_spk import drop_speakers
+
+    drop_speakers(_find_exp(args.exp, args.work_dir), list(args.spk), args.fill,
+                  work_dir_root=args.work_dir, retain=args.retain, out=args.out,
+                  overwrite=args.overwrite)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m xiaoicesing_io_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -292,6 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
     ac.add_argument("--depth", type=float, default=None)
     ac.add_argument("--steps", type=int, default=None)
     ac.add_argument("--mel", action="store_true", help="save the mel instead of the waveform")
+    ac.add_argument("--dp", action="store_true",
+                    help="synthesise in bucket batches (serving mode; per-segment seeds are "
+                         "replaced by one noise stream per batch chunk)")
     ac.add_argument("--device", default=None, help="torch device (default: cuda)")
     ac.set_defaults(func=infer_acoustic)
 
@@ -369,6 +388,20 @@ def build_parser() -> argparse.ArgumentParser:
     bi.add_argument("--device", default=None,
                     help="torch device of RMVPE and the vocal remover (default: cuda)")
     bi.set_defaults(func=binarize)
+
+    ds = sub.add_parser("drop_spk", help="Scrub speaker embeddings in a checkpoint (privacy)")
+    ds.add_argument("exp", help="experiment name or unique prefix")
+    ds.add_argument("--spk", action="append", required=True,
+                    help="speaker name or id to drop (repeatable)")
+    ds.add_argument("--fill", default="zeros", choices=["zeros", "random", "mean", "cyclic"])
+    ds.add_argument("--retain", action="store_true",
+                    help="invert: keep the listed speakers and scrub all others")
+    ds.add_argument("--out", default=None,
+                    help="write the scrubbed checkpoint here instead of in place")
+    ds.add_argument("--overwrite", action="store_true",
+                    help="allow replacing an existing checkpoint (required for in-place edits)")
+    ds.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+    ds.set_defaults(func=drop_spk)
     return parser
 
 

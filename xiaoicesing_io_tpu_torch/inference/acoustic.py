@@ -329,25 +329,44 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
     # -- a whole .ds ----------------------------------------------------------
 
     def run_inference(self, params: List[dict], out_dir, title: str, num_runs: int = 1,
-                      seed: int = -1, save_mel: bool = False) -> List[Path]:
+                      seed: int = -1, save_mel: bool = False,
+                      data_parallel: bool = False) -> List[Path]:
+        """``data_parallel=True`` synthesises the segments in bucket batches
+        and vocodes them in groups of equal length (serving mode,
+        ``inference/serving.py``): per-segment seeds give way to one noise
+        stream a chunk and a vocoder group."""
         batches = [self.preprocess_input(p, idx=i) for i, p in enumerate(params)]
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
         suffix = ".wav" if not save_mel else ".mel.npz"
         sr = self.cfg["audio_sample_rate"]
+        dp = None
+        if data_parallel:
+            from .serving import DataParallelSynthesizer
+
+            dp = DataParallelSynthesizer(self)
         paths = []
         for run in range(num_runs):
             run_seed = seed if seed >= 0 else fresh_seed()
+            dp_mels = dp_wavs = None
+            if dp is not None:
+                dp_mels, dp_f0s = dp.synthesize_mels(params, seed=run_seed, batches=batches)
+                if not save_mel:
+                    dp_wavs = dp.vocode(dp_mels, dp_f0s, seed=run_seed)
             result = [] if save_mel else np.zeros(0)
             current_length = 0
             for i, (param, batch) in enumerate(zip(params, batches)):
-                seg_seed = int(param.get("seed", run_seed + i))
-                mel_pred = self.forward_model(batch, seed=seg_seed)
+                if dp_mels is not None:
+                    mel_pred = dp_mels[i][None]
+                else:
+                    seg_seed = int(param.get("seed", run_seed + i))
+                    mel_pred = self.forward_model(batch, seed=seg_seed)
                 if save_mel:
                     result.append({"offset": param.get("offset", 0.0), "mel": mel_pred[0],
                                    "f0": np.asarray(batch["f0"])[0]})
                     continue
-                wav = self.run_vocoder(mel_pred, np.asarray(batch["f0"]), seed=seg_seed)
+                wav = dp_wavs[i] if dp_wavs is not None else \
+                    self.run_vocoder(mel_pred, np.asarray(batch["f0"]), seed=seg_seed)
                 silent = round(param.get("offset", 0) * sr) - current_length
                 if silent >= 0:
                     result = np.append(result, np.zeros(silent))

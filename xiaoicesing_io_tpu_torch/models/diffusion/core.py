@@ -31,10 +31,14 @@ class SpecNormalizer:
         smax = np.asarray(spec_max, dtype=np.float32).reshape(num_feats, -1)
         self.spec_min = smin[None, :, None, :]
         self.spec_max = smax[None, :, None, :]
+        self._on_device = {}
 
     def _bounds(self, x: torch.Tensor):
-        return (torch.as_tensor(self.spec_min, device=x.device),
-                torch.as_tensor(self.spec_max, device=x.device))
+        # copied once per device: a host-to-device copy waits for the card
+        if x.device not in self._on_device:
+            self._on_device[x.device] = (torch.as_tensor(self.spec_min, device=x.device),
+                                         torch.as_tensor(self.spec_max, device=x.device))
+        return self._on_device[x.device]
 
     def _clamp(self, xs):
         if self.clamps is None:
@@ -75,7 +79,9 @@ class GaussianDiffusion:
         shape = (-1,) + (1,) * (x_start.ndim - 1)
 
         def coef(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=x_start.device)[t].reshape(shape)
+            # an asynchronous copy: a blocking one would wait for the card
+            a = torch.as_tensor(a, dtype=torch.float32).to(x_start.device, non_blocking=True)
+            return a[t].reshape(shape)
 
         return (coef(self.schedule.sqrt_alphas_cumprod) * x_start
                 + coef(self.schedule.sqrt_one_minus_alphas_cumprod) * noise)

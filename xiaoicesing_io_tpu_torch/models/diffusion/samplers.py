@@ -298,8 +298,9 @@ def sample_reflow(velocity_fn: VelocityFn, x: torch.Tensor, t_start: float, step
                   time_scale_factor: float = 1000.0, algorithm: str = "euler") -> torch.Tensor:
     """Fixed-step integration from ``t_start`` to 1."""
     dt = (1.0 - t_start) / max(1, steps)
-    t_grid = torch.tensor(t_start + dt * np.arange(steps), dtype=torch.float32,
-                          device=x.device)
+    # an asynchronous copy: a blocking one would wait for the card
+    t_grid = torch.tensor(t_start + dt * np.arange(steps), dtype=torch.float32).to(
+        x.device, non_blocking=True)
     b = x.shape[0]
     s = time_scale_factor
 

@@ -62,15 +62,27 @@ def load_reference_weights(module: torch.nn.Module, state_dict: Dict[str, torch.
                        f"{unexpected[:8]}")
 
 
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser: every bit of ``x`` reaches every bit out."""
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
 def generator_from_seed(seed: Optional[int], device: torch.device,
                         salt: int = 0) -> Optional[torch.Generator]:
     """A ``torch.Generator`` on ``device`` seeded from ``seed`` (32-bit) and a
-    salt, so diffusion noise and vocoder source noise draw distinct streams.
-    ``None`` for ``seed=None``: no randomness."""
+    32-bit salt, so diffusion noise and vocoder source noise draw distinct
+    streams.  A salt below 256 seeds ``(seed << 8) | salt``; a larger one (a
+    serving chunk's ``bucket * 4099 + chunk``, a vocoder group's length)
+    seeds a 64-bit mix of both, whose low 32 bits (all that torch's CPU
+    generator keeps) depend on every bit of the salt.  ``None`` for
+    ``seed=None``: no randomness."""
     if seed is None:
         return None
+    seed, salt = int(seed) & 0xFFFFFFFF, int(salt) & 0xFFFFFFFF
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 8) | (salt & 0xFF))
+    g.manual_seed((seed << 8) | salt if salt < 256 else _mix64((seed << 32) | salt))
     return g
 
 
