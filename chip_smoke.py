@@ -201,6 +201,20 @@ Phases, each printed on its own line:
      ``deployment/benchmarks.py``'s ``bench_acoustic``
      (on the phase 6 configuration) and ``bench_vocoder`` at their defaults
      (ms per run).
+ 16. (after phase 7b, on the experiments of phases 6 and 7b) export: the
+     port's exporters (``deployment/export.py``, on the CPU in f32, through
+     its aten -> ONNX converter) write phase 6's vocoder, its LYNXNet
+     experiment and phase 7b's variance experiment; each graph's seconds,
+     MB and node count are printed.  The numpy executor (``onnx_run.py``)
+     runs ``nsf_hifigan.onnx`` on a 256-frame mel and f0 of the sample's
+     first segment, held against the card's folded vocoder (K2 twice, K6 27
+     times) at ``bench/check.py``'s wav bar; the merged ``acoustic.onnx`` at
+     the shipped depth and 4 Euler steps on that segment's first 64 tokens
+     and 512 frames, held against the card's K1 path (24 launches) from the
+     executor's start noise at the mel bars; the merged ``pitch.onnx`` at 20
+     steps, held against the card's pitch head on K4 (400 launches) from
+     the same noise at phase 7b's bar (10 cents RMS, corr > 0.999).  Each
+     executor run's host seconds are printed.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -276,7 +290,8 @@ units of stages 2-4; ``launches`` are wrapper calls in the ``.ds`` run of
 the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
 for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
 K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12;
-every entry carries ``serve_path_launches`` from phase 15).
+every entry carries ``serve_path_launches`` from phase 15 and
+``export_check_launches`` from phase 16).
 The last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -3167,6 +3182,235 @@ def run_serving(lynx_runner, wavenet_runner, work: Path, name_limit: str) -> dic
     return {k: lynx[k] + wavenet[k] for k in lynx}
 
 
+# ---------------------------------------------------------------------------
+# export: ONNX graphs of the phase 6 and 7b experiments against the card (K1, K2, K6, K4)
+# ---------------------------------------------------------------------------
+
+EXPORT_STEPS = 4        # Euler steps of the acoustic graph (the numpy executor is slow)
+EXPORT_SEED = 16        # the executor's noise
+
+
+def graph_stats(path: Path) -> tuple:
+    """(the parsed graph, MB on disk, node count with the Loop bodies')."""
+    from xiaoicesing_io_tpu_torch.deployment.onnx_proto import parse_model
+
+    data = path.read_bytes()
+    graph, _ = parse_model(data)
+
+    def count(g):
+        return sum(1 + sum(count(v) for v in n.attrs.values() if hasattr(v, "nodes"))
+                   for n in g.nodes)
+    return graph, len(data) / 1e6, count(graph)
+
+
+def run_graph_timed(graph, feeds, seed: int = EXPORT_SEED) -> tuple:
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.deployment.onnx_run import run_graph
+
+    t0 = time.perf_counter()
+    out = run_graph(graph, feeds, rng=np.random.default_rng(seed))
+    return out, time.perf_counter() - t0
+
+
+def exported(label: str, what, out: Path, name: str, seconds: float) -> tuple:
+    graph, mb, nodes = graph_stats(out / f"{name}.onnx")
+    log(f"[export {label}] {what}: {seconds:.2f}s; {name}.onnx {mb:.2f} MB, {nodes} nodes "
+        f"({len(graph.initializers)} initializers)")
+    return graph
+
+
+def export_vocoder_check(runner, work: Path, name_limit: str) -> dict:
+    """The random full-width vocoder of phase 6 exported (the stock f32
+    generator), its graph run by the numpy executor on a 256-frame mel and
+    f0 of the sample's first segment, against the card's folded vocoder (K2
+    twice, K6 27 times) on the same inputs at ``bench/check.py``'s wav bar."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.deployment.export import export_nsf_hifigan
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+
+    t0 = time.perf_counter()
+    out = export_nsf_hifigan(runner.cfg, out_dir=str(work / "nsf_hifigan"))
+    graph = exported("vocoder", "export nsf-hifigan", out, "nsf_hifigan",
+                     time.perf_counter() - t0)
+    batch = runner.preprocess_input(load_ds(ROOT / SAMPLE)[0])
+    frames = graph.inputs[0][2][1]
+    check.require(batch["f0"].shape[1] >= frames, "the first segment is shorter than the graph")
+    mel = runner.forward_model(batch, seed=0)[:, :frames]
+    f0 = np.asarray(batch["f0"], np.float32)[:, :frames]
+    if runner.cfg.get("mel_base", 10) != "e":
+        mel = mel * 2.30259  # the graph takes ln mel, as the vocoder converts it
+    feeds = {"in0": mel.astype(np.float32), "in1": f0}
+    got, host_s = run_graph_timed(graph, feeds)
+    check.zero_launch_counts()
+    with torch.no_grad():
+        card = runner.vocoder.spec2wav_torch(torch.as_tensor(mel, device="cuda"),
+                                             torch.as_tensor(f0, device="cuda"))
+    torch.cuda.synchronize()
+    launches = check.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(check.vocoder_calls(runner.vocoder))
+    check.check_launches(launches, want, True, "the card vocoder of the export check")
+    res = check.compare_wav(card.cpu().numpy(), got["out0"])
+    log(f"[export vocoder] card={name_limit} nsf_hifigan.onnx on the numpy executor: "
+        f"{frames} frames in {host_s:.2f}s host; against the card's folded bf16 vocoder "
+        f"(launches { {k: v for k, v in want.items() if v} }): wav max_abs_err={res['wav_max_abs_err']:.6g} "
+        f"corr={res['wav_corr']:.8f} (tolerance: corr > {check.WAV_TOL_CORR})")
+    check.require(res["wav_ok"], f"the exported vocoder disagrees with the card's: {res}")
+    return launches
+
+
+def export_acoustic_check(runner, work: Path, name_limit: str) -> dict:
+    """Phase 6's full-width LYNXNet experiment exported; the merged
+    ``acoustic.onnx`` run by the numpy executor at the shipped depth and
+    :data:`EXPORT_STEPS` Euler steps on the sample's first segment (cut to
+    the graph's 64 tokens and 512 frames), against the card's kernel path
+    (K1 once per layer per step) from the executor's start noise, at
+    ``bench/check.py``'s mel bars."""
+    import numpy as np
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.deployment.export import export_acoustic
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+
+    cfg = runner.cfg
+    t0 = time.perf_counter()
+    out = export_acoustic(cfg, out_dir=str(work / "acoustic"))
+    seconds = time.perf_counter() - t0
+    for name in ("fs2_aux", "diffusion_step"):
+        exported("acoustic", "export acoustic (with the merged graph)", out, name, seconds)
+    graph = exported("acoustic", "export acoustic (with the merged graph)", out, "acoustic",
+                     seconds)
+    shapes = {n: s for n, _, s in graph.inputs}
+    T_ph, T_f = shapes["tokens"][1], shapes["mel2ph"][1]
+    batch = runner.preprocess_input(load_ds(ROOT / SAMPLE)[0])
+    mel2ph = np.asarray(batch["mel2ph"])[:, :T_f]
+    check.require(mel2ph.shape[1] == T_f and mel2ph.max() <= T_ph,
+                  "the first segment does not fill the graph's frames within its tokens")
+    batch = {"tokens": np.asarray(batch["tokens"], np.int32)[:, :T_ph],
+             "mel2ph": mel2ph.astype(np.int32),
+             "f0": np.asarray(batch["f0"], np.float32)[:, :T_f]}
+    batch["tokens"] = np.pad(batch["tokens"], [(0, 0), (0, T_ph - batch["tokens"].shape[1])])
+    t_start = cfg.get("T_start_infer", runner.core.t_start)
+    feeds = dict(batch, depth=np.asarray(1.0 - t_start, np.float32),
+                 steps=np.asarray(EXPORT_STEPS, np.int64))
+    got, host_s = run_graph_timed(graph, feeds)
+    noise = np.random.default_rng(EXPORT_SEED).standard_normal(
+        (1, 1, T_f, cfg["audio_num_mel_bins"])).astype(np.float32)
+    steps = cfg["sampling_steps"]
+    cfg["sampling_steps"] = EXPORT_STEPS
+    try:
+        check.zero_launch_counts()
+        card = runner.forward_model(batch, noise=noise)
+        launches = check.launch_counts()
+    finally:
+        cfg["sampling_steps"] = steps
+    want = dict.fromkeys(launches, 0)
+    want["lynx_conv_module"] = len(runner.model.backbone.residual_layers) * EXPORT_STEPS
+    check.check_launches(launches, want, True, "the card sampler of the export check")
+    res = check.compare_mel(card, got["mel"])
+    log(f"[export acoustic] card={name_limit} acoustic.onnx on the numpy executor: depth "
+        f"{1.0 - t_start:.2f}, {EXPORT_STEPS} steps, {T_ph} tokens x {T_f} frames in "
+        f"{host_s:.2f}s host; against the card's K1 path from the same noise (launches "
+        f"{ {k: v for k, v in want.items() if v} }): mel max_abs_err={res['mel_max_abs_err']:.6g} "
+        f"max_abs_ref={res['mel_max_abs_ref']:.6g} (rel {res['mel_rel_err']:.6g}) "
+        f"corr={res['mel_corr']:.8f} (tolerance: {check.tolerance_text()})")
+    check.require(res["mel_ok"], f"the exported acoustic graph disagrees with the card's: {res}")
+    return launches
+
+
+def export_variance_check(variance_cfg, work: Path, name_limit: str) -> dict:
+    """Phase 7b's full-width variance experiment exported; the merged
+    ``pitch.onnx`` run by the numpy executor at the shipped steps on inputs
+    drawn from :data:`EXPORT_SEED`, against the card's pitch head (K4 once per
+    layer per step) from the executor's start noise, at phase 7b's bar
+    (:data:`PITCH_TOL_CENTS` RMS, corr > :data:`PITCH_MIN_CORR`)."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.deployment.export import export_variance
+    from xiaoicesing_io_tpu_torch.inference.variance import DiffSingerVarianceInfer, head_denoiser
+
+    t0 = time.perf_counter()
+    out = export_variance(variance_cfg, out_dir=str(work / "variance"))
+    seconds = time.perf_counter() - t0
+    for name in ("linguistic_dur", "frame_condition", "pitch_pre", "pitch_step",
+                 "variance_pre", "variance_step", "variance"):
+        exported("variance", "export variance (with the merged graphs)", out, name, seconds)
+    graph = exported("variance", "export variance (with the merged graphs)", out, "pitch",
+                     seconds)
+    runner = DiffSingerVarianceInfer(variance_cfg, device="cuda")
+    shapes = {n: s for n, _, s in graph.inputs}
+    T_f, T_n = shapes["mel2ph"][1], shapes["note_midi"][1]
+    T_ph = 64
+    H = variance_cfg["hidden_size"]
+    rng = np.random.default_rng(EXPORT_SEED)
+    notes = np.sort(rng.integers(1, T_n + 1, (1, T_f)), axis=1)
+    values = {
+        "condition": rng.standard_normal((1, T_f, H)).astype(np.float32),
+        "mel2ph": np.sort(rng.integers(1, T_ph + 1, (1, T_f)), axis=1).astype(np.int32),
+        "base_pitch": (60.0 + rng.uniform(-5, 5, (1, T_n)))[0][notes - 1].astype(np.float32),
+        "pitch_expr": rng.uniform(0.5, 1.0, (1, T_f)).astype(np.float32),
+        "note_midi": rng.uniform(55, 70, (1, T_n)).astype(np.float32),
+        "note_rest": rng.uniform(size=(1, T_n)) < 0.1,
+        "note_dur": np.bincount(notes[0] - 1, minlength=T_n)[None].astype(np.int32),
+        "note_glide": rng.integers(0, 3, (1, T_n)).astype(np.int32),
+        "mel2note": notes.astype(np.int32),
+    }
+    steps = variance_cfg.get("sampling_steps", 20)
+    feeds = dict(values, depth=np.asarray(1.0, np.float32), steps=np.asarray(steps, np.int64))
+    feeds = {n: feeds[n] for n in shapes}
+    got, host_s = run_graph_timed(graph, feeds)
+    shape = tuple(graph_stats(out / "pitch_step.onnx")[0].inputs[0][2])  # the pitch head's x
+    noise = np.random.default_rng(EXPORT_SEED).standard_normal(shape).astype(np.float32)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in values.items()}
+    with torch.no_grad():
+        cond = runner.model.pitch_condition(
+            t["condition"], t["mel2ph"].long(), t["base_pitch"], pitch_expr=t["pitch_expr"],
+            note_midi=t["note_midi"], note_rest=t["note_rest"], note_dur=t["note_dur"].long(),
+            note_glide=t["note_glide"].long(), mel2note=t["mel2note"].long())
+        den = head_denoiser(runner.heads()["pitch"], cond, runner.kernel_weights["pitch"],
+                            runner.compute_dtype)
+        check.zero_launch_counts()
+        x = runner.core.inference(den, shape, t_start=0.0, steps=steps, algorithm="euler",
+                                  noise=torch.as_tensor(noise, device="cuda"))
+        card = runner.normalizers["pitch"].denorm(x).cpu().numpy()
+    launches = check.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["wavenet_block"] = len(runner.heads()["pitch"].residual_layers) * steps
+    check.check_launches(launches, want, True, "the card pitch head of the export check")
+    cents = 100.0 * (got["pitd"] - card)
+    rms = float(np.sqrt(np.mean(cents ** 2)))
+    corr = float(np.corrcoef(got["pitd"].ravel(), card.ravel())[0, 1])
+    log(f"[export variance] card={name_limit} pitch.onnx on the numpy executor: {steps} steps, "
+        f"{T_f} frames in {host_s:.2f}s host; against the card's pitch head on K4 from the same "
+        f"noise (launches { {k: v for k, v in want.items() if v} }): max_abs_err="
+        f"{np.abs(cents).max():.4f} cents rms={rms:.4f} cents corr={corr:.8f} (tolerance rms <= "
+        f"{PITCH_TOL_CENTS}, corr > {PITCH_MIN_CORR})")
+    check.require(rms <= PITCH_TOL_CENTS and corr > PITCH_MIN_CORR,
+                  "the exported pitch graph disagrees with the card's pitch head")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_export(lynx_runner, variance_cfg, work: Path, name_limit: str) -> dict:
+    """Phase 16: the exporters on the CPU, their graphs on the numpy
+    executor, held against the card: the vocoder against K2 and K6, the
+    merged acoustic graph against K1, the merged pitch graph against K4.
+    Returns the card's launches in those checks, summed."""
+    t_phase = time.perf_counter()
+    vocoder = export_vocoder_check(lynx_runner, work, name_limit)
+    acoustic = export_acoustic_check(lynx_runner, work, name_limit)
+    pitch = export_variance_check(variance_cfg, work, name_limit)
+    log(f"[done 16] {time.perf_counter() - t_phase:.1f}s")
+    return {k: vocoder[k] + acoustic[k] + pitch[k] for k in vocoder}
+
+
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
@@ -3248,9 +3492,12 @@ def main(argv) -> int:
             {"K4": k4, "K2": k2, "K6": k6})
         serving = run_serving(lynx_runner, wavenet_runner, work / "serve", name_limit)
         lynx_cfg = lynx_runner.cfg
-        del lynx_runner, wavenet_runner
+        del wavenet_runner
         torch.cuda.empty_cache()
         variance, variance_cfg = run_variance_pipeline(work / "pipeline", name_limit)
+        export = run_export(lynx_runner, variance_cfg, work / "export", name_limit)
+        del lynx_runner
+        torch.cuda.empty_cache()
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
         training = run_training(lynx_cfg, work / "train", name_limit, per_call)
@@ -3307,6 +3554,7 @@ def main(argv) -> int:
     for entry in kernels:
         entry["binarize_path_launches"] = binarization[entry["name"]]
         entry["serve_path_launches"] = serving[entry["name"]]
+        entry["export_check_launches"] = export[entry["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -296,21 +296,27 @@ def test_chunk_streams_distinct_across_buckets(runners, monkeypatch):
 
 @pytest.mark.parametrize("seed", [0, 1, 7, 2 ** 32 - 1, 2 ** 40 + 5, -3])
 def test_generator_from_seed_small_salts_unchanged(seed):
-    """Salts below 256 (the runners' 0 and 1, the variance heads' small
-    salts) seed the stream they always did: ``(seed << 8) | salt``."""
-    from xiaoicesing_io_tpu_torch.utils import generator_from_seed
+    """On the card, salts below 256 (the runners' 0 and 1, the variance
+    heads' small salts) seed the stream they always did: ``(seed << 8) |
+    salt``.  On the CPU, whose generator keeps only its seed's low 32 bits,
+    every bit of the seed and every salt moves the stream."""
+    from xiaoicesing_io_tpu_torch.utils import generator_from_seed, seed_for
 
     cpu = torch.device("cpu")
     assert generator_from_seed(None, cpu) is None
     for salt in (0, 1, 2, 3, 17, 255):
+        assert seed_for(seed, salt, "cuda") == ((seed & 0xFFFFFFFF) << 8) | salt
         g = generator_from_seed(seed, cpu, salt=salt)
-        assert g.initial_seed() == ((seed & 0xFFFFFFFF) << 8) | salt
-        ref = torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 8) | salt)
-        assert torch.equal(torch.randn(16, generator=g), torch.randn(16, generator=ref))
-    # a larger salt moves the stream, on the CPU too (whose generator keeps
-    # only its seed's low 32 bits)
+        assert g.initial_seed() == seed_for(seed, salt, "cpu")
+        # bits 24-31 of the seed reach the CPU stream
+        for bit in (24, 31):
+            other = generator_from_seed(seed ^ (1 << bit), cpu, salt=salt)
+            assert not torch.equal(torch.randn(16, generator=generator_from_seed(seed, cpu, salt)),
+                                   torch.randn(16, generator=other)), (salt, bit)
+    # distinct salts draw distinct streams, small and large alike
     draws = [torch.randn(16, generator=generator_from_seed(seed, cpu, salt=salt))
-             for salt in (0, 1, 256, 512, 256 * 4099, 512 * 4099, 512 * 4099 + 1)]
+             for salt in (0, 1, 2, 3, 17, 255, 256, 512, 256 * 4099, 512 * 4099,
+                          512 * 4099 + 1)]
     for i in range(len(draws)):
         for j in range(i):
             assert not torch.equal(draws[i], draws[j]), (i, j)

@@ -56,9 +56,21 @@ def round_mantissa(x: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
 
 def segment_generator(seed: int, device, salt: int) -> torch.Generator:
     """The stream a song segment's seed names: salt 0 the sampler's start
-    noise, salt 1 the vocoder's source (the runner's per-segment seeds)."""
+    noise, salt 1 the vocoder's source (the runner's per-segment seeds).
+    On the card the seed is ``(seed << 8) | salt``; on the CPU, whose
+    generator keeps only the low 32 bits of its seed, splitmix64's finaliser
+    of ``(seed << 32) | salt``."""
+    seed = int(seed) & 0xFFFFFFFF
+    if torch.device(device).type == "cuda":
+        value = (seed << 8) | salt
+    else:
+        mask = (1 << 64) - 1
+        value = (seed << 32) | salt
+        value = (value ^ (value >> 30)) * 0xBF58476D1CE4E5B9 & mask
+        value = (value ^ (value >> 27)) * 0x94D049BB133111EB & mask
+        value ^= value >> 31
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 8) | salt)
+    g.manual_seed(value)
     return g
 
 

@@ -8,6 +8,8 @@
     python -m xiaoicesing_io_tpu_torch.cli train --config cfg.yaml --exp_name my_exp [--hparams k=v,...]
     python -m xiaoicesing_io_tpu_torch.cli binarize --config cfg.yaml [--hparams k=v,...]
     python -m xiaoicesing_io_tpu_torch.cli drop_spk my_exp --spk name [--fill zeros] [--out PATH]
+    python -m xiaoicesing_io_tpu_torch.cli export acoustic|variance --exp my_exp [--out DIR] [--freeze_* ...]
+    python -m xiaoicesing_io_tpu_torch.cli export nsf-hifigan (--exp my_exp | --config cfg.yaml) [--ckpt model.ckpt]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
@@ -34,8 +36,11 @@ of ``raw_data_dir`` into ``binary_data_dir``'s ``{train,valid}.{data,meta}``,
 whatever module path precedes it: nothing is imported from that path).
 ``drop_spk`` scrubs speakers from the speaker table of an experiment's
 latest checkpoint (in place with ``--overwrite``, or into ``--out``); the
-edit is host work, so it alone takes no ``--device``.
-Every command runs on CUDA unless ``--device`` names another device.
+edit is host work, so it takes no ``--device``.  ``export`` writes the ONNX
+graphs, manifest and attachments of an experiment (or of its vocoder) for
+deployment; it loads the checkpoint on the CPU and traces the f32 modules,
+so it takes no ``--device`` either.
+Every other command runs on CUDA unless ``--device`` names another device.
 """
 
 from __future__ import annotations
@@ -287,6 +292,90 @@ def drop_spk(args) -> None:
                   overwrite=args.overwrite)
 
 
+def export_acoustic(args) -> None:
+    from .config import load_config
+    from .deployment.export import export_acoustic as _export
+
+    cfg = load_config(None, exp_name=_find_exp(args.exp, args.work_dir),
+                      work_dir_root=args.work_dir, infer=True)
+    _export(cfg, out_dir=args.out, ckpt_steps=args.ckpt, fmt=args.fmt,
+            freeze_gender=args.freeze_gender, freeze_velocity=args.freeze_velocity,
+            freeze_spk=args.freeze_spk, export_spk=list(args.export_spk))
+
+
+def export_variance(args) -> None:
+    from .config import load_config
+    from .deployment.export import export_variance as _export
+
+    cfg = load_config(None, exp_name=_find_exp(args.exp, args.work_dir),
+                      work_dir_root=args.work_dir, infer=True)
+    _export(cfg, out_dir=args.out, ckpt_steps=args.ckpt, fmt=args.fmt,
+            freeze_expr=args.freeze_expr, freeze_glide=args.freeze_glide,
+            freeze_spk=args.freeze_spk, export_spk=list(args.export_spk))
+
+
+def export_nsf_hifigan(args) -> None:
+    from .config import load_config
+    from .deployment.export import export_nsf_hifigan as _export
+
+    exp = _find_exp(args.exp, args.work_dir) if args.exp else None
+    cfg = load_config(args.config, exp_name=exp, work_dir_root=args.work_dir, infer=True)
+    _export(cfg, out_dir=args.out, ckpt_path=args.ckpt, fmt=args.fmt)
+
+
+def _add_export_parsers(sub) -> None:
+    """``export acoustic|variance|nsf-hifigan``: the JAX command group's
+    options; ``--format`` takes ``onnx`` only."""
+    ex = sub.add_parser("export", help="Export models for deployment (ONNX graphs + manifest)")
+    ex_sub = ex.add_subparsers(dest="kind", required=True)
+
+    def common(p, exp_required=True):
+        p.add_argument("--exp", required=exp_required, help="experiment name or unique prefix")
+        p.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+        p.add_argument("--out", default=None,
+                       help="output directory (default: artifacts/<exp_name>)")
+        p.add_argument("--format", dest="fmt", default="onnx", choices=["onnx"],
+                       help="graph format (the JAX package's stablehlo and savedmodel are "
+                            "JAX and TensorFlow artifacts)")
+
+    ea = ex_sub.add_parser("acoustic", help="Export the acoustic model (graphs + manifest)")
+    common(ea)
+    ea.add_argument("--ckpt", type=int, default=None, help="checkpoint step (default: latest)")
+    ea.add_argument("--freeze_gender", type=float, default=None,
+                    help="bake a static gender value [-1, 1] instead of a key_shift input")
+    ea.add_argument("--freeze_velocity", type=float, nargs="?", const=1.0, default=None,
+                    help="bake a static velocity instead of a speed input "
+                         "(bare flag = default velocity 1.0, like the reference)")
+    ea.add_argument("--freeze_spk", default=None,
+                    help="bake a static speaker mix, e.g. 'alice' or 'alice:0.6|bob:0.4'")
+    ea.add_argument("--export_spk", action="append", default=[],
+                    help="write named speaker-mix .emb attachments, e.g. "
+                         "'duet=alice:0.6|bob:0.4' (repeatable)")
+    ea.set_defaults(func=export_acoustic)
+
+    ev = ex_sub.add_parser("variance", help="Export the variance model (graphs + manifest)")
+    common(ev)
+    ev.add_argument("--ckpt", type=int, default=None, help="checkpoint step (default: latest)")
+    ev.add_argument("--freeze_expr", type=float, nargs="?", const=1.0, default=None,
+                    help="bake a static expressiveness factor instead of an input "
+                         "(bare flag = default 1.0, like the reference)")
+    ev.add_argument("--freeze_glide", action="store_true",
+                    help="bake the default (none) glide embedding; drops the note_glide input")
+    ev.add_argument("--freeze_spk", default=None,
+                    help="bake a static speaker mix, e.g. 'alice:0.6|bob:0.4'")
+    ev.add_argument("--export_spk", action="append", default=[],
+                    help="write named speaker-mix .emb attachments (repeatable)")
+    ev.set_defaults(func=export_variance)
+
+    en = ex_sub.add_parser("nsf-hifigan", help="Export the NSF-HiFiGAN vocoder graph + "
+                                               "vocoder.yaml")
+    common(en, exp_required=False)
+    en.add_argument("--config", default=None,
+                    help="configuration naming vocoder_ckpt (alternative to --exp)")
+    en.add_argument("--ckpt", default=None, help="vocoder model.ckpt path override")
+    en.set_defaults(func=export_nsf_hifigan)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m xiaoicesing_io_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -402,6 +491,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="allow replacing an existing checkpoint (required for in-place edits)")
     ds.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
     ds.set_defaults(func=drop_spk)
+    _add_export_parsers(sub)
     return parser
 
 

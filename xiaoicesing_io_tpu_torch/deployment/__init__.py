@@ -1,1 +1,1 @@
-"""Deployment tools: speaker scrubbing and latency micro-benchmarks."""
+"""Deployment tools: ONNX export, speaker scrubbing and latency micro-benchmarks."""

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,25 +52,33 @@ def merge_weight_norm(state_dict: dict) -> dict:
     return sd
 
 
+def load_generator(model_path) -> Tuple[dict, Generator]:
+    """A reference NSF-HiFiGAN ``model.ckpt`` (``{"generator": state_dict}`` or
+    a bare state dict, weight norm merged) and the ``config.json`` beside it
+    -> (config dict, the stock f32 :class:`Generator` on the CPU, in eval
+    mode)."""
+    model_path = Path(model_path)
+    if not model_path.exists():
+        raise FileNotFoundError(
+            f"NSF-HiFiGAN vocoder model is not found at '{model_path}'. "
+            "Please follow instructions in docs/BestPractices.md#vocoders to get one."
+        )
+    with open(model_path.with_name("config.json")) as f:
+        h = json.load(f)
+    ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
+    generator = Generator(NsfHifiganConfig.from_json(h))
+    generator.load_state_dict(merge_weight_norm(ckpt.get("generator", ckpt)), strict=True)
+    return h, generator.eval()
+
+
 @register_vocoder
 class NsfHifiGAN:
     def __init__(self, cfg, model_path=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        model_path = Path(model_path or cfg["vocoder_ckpt"])
-        if not model_path.exists():
-            raise FileNotFoundError(
-                f"NSF-HiFiGAN vocoder model is not found at '{model_path}'. "
-                "Please follow instructions in docs/BestPractices.md#vocoders to get one."
-            )
-        with open(model_path.with_name("config.json")) as f:
-            self.h = json.load(f)
-        self.vcfg = NsfHifiganConfig.from_json(self.h)
-        ckpt = torch.load(model_path, map_location="cpu", weights_only=True)
-        sd = merge_weight_norm(ckpt.get("generator", ckpt))
-        self.generator = Generator(self.vcfg)
-        self.generator.load_state_dict(sd, strict=True)
-        self.generator.to(self.device).eval()
+        self.h, self.generator = load_generator(model_path or cfg["vocoder_ckpt"])
+        self.vcfg = self.generator.config
+        self.generator.to(self.device)
         self._check_params()
         on_card = self.device.type == "cuda"
         self.dtype = torch.bfloat16 if on_card else torch.float32

@@ -69,20 +69,28 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def seed_for(seed: int, salt: int, device_type: str) -> int:
+    """The 64-bit seed ``generator_from_seed`` gives a generator of
+    ``device_type`` for a 32-bit ``seed`` and ``salt``.  On the card (Philox
+    keeps all 64 bits) a salt below 256 seeds ``(seed << 8) | salt`` and a
+    larger one a 64-bit mix of both.  torch's CPU generator keeps only its
+    seed's low 32 bits, so on the CPU every salt seeds the mix, whose low 32
+    bits depend on every bit of the seed and of the salt."""
+    seed, salt = int(seed) & 0xFFFFFFFF, int(salt) & 0xFFFFFFFF
+    if device_type == "cuda" and salt < 256:
+        return (seed << 8) | salt
+    return _mix64((seed << 32) | salt)
+
+
 def generator_from_seed(seed: Optional[int], device: torch.device,
                         salt: int = 0) -> Optional[torch.Generator]:
     """A ``torch.Generator`` on ``device`` seeded from ``seed`` (32-bit) and a
-    32-bit salt, so diffusion noise and vocoder source noise draw distinct
-    streams.  A salt below 256 seeds ``(seed << 8) | salt``; a larger one (a
-    serving chunk's ``bucket * 4099 + chunk``, a vocoder group's length)
-    seeds a 64-bit mix of both, whose low 32 bits (all that torch's CPU
-    generator keeps) depend on every bit of the salt.  ``None`` for
-    ``seed=None``: no randomness."""
+    32-bit salt (``seed_for``), so diffusion noise and vocoder source noise
+    draw distinct streams.  ``None`` for ``seed=None``: no randomness."""
     if seed is None:
         return None
-    seed, salt = int(seed) & 0xFFFFFFFF, int(salt) & 0xFFFFFFFF
     g = torch.Generator(device=device)
-    g.manual_seed((seed << 8) | salt if salt < 256 else _mix64((seed << 32) | salt))
+    g.manual_seed(seed_for(seed, salt, torch.device(device).type))
     return g
 
 
