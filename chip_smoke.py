@@ -215,6 +215,25 @@ Phases, each printed on its own line:
      steps, held against the card's pitch head on K4 (400 launches) from
      the same noise at phase 7b's bar (10 cents RMS, corr > 0.999).  Each
      executor run's host seconds are printed.
+ 17. (after phase 13, on its two experiments) the JAX-checkpoint bridge
+     (``training/jax_bridge.py``).  A GPU host with PyTorch alone has no
+     ``tensorstore``, so the phase starts from the tree: phase 13's last
+     acoustic checkpoint (LYNXNet 1024 x 6, after the resumed updates) and
+     its last variance checkpoint, each as the JAX package's ``{"params",
+     "opt_state"}`` tree (``jax_tree_from_state``: the port's
+     ``torch_ckpt`` for the params, optax's state in the layout the
+     configuration gives), converted back (``convert_jax_tree``:
+     ``model_from_jax`` with its round-trip check,
+     ``optimizer_state_from_jax``) into a ``.ckpt``, whose weights and
+     AdamW state must be the original's bit for bit; each conversion's
+     seconds are printed with the card's name and power limit.  Then
+     ``DiffSingerAcousticInfer(device="cuda")`` from each file on the
+     sample's first segment, seed 0: mel and wav bit for bit, K1 once per
+     layer per step, K2 twice and K6 27 times, nothing else; the variance
+     heads from each file on that segment's bare score: durations, pitch
+     and curves bit for bit, K4 once per layer per step of both heads,
+     nothing else.  Then two updates from each file with the same fixed
+     gradients on the card: the parameters bit for bit equal.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -291,7 +310,8 @@ the configuration that runs the kernel: phase 6 for K1, K2 and K6, phase 7
 for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, in the mode that runs it, for K5, K7 and
 K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12;
 every entry carries ``serve_path_launches`` from phase 15 and
-``export_check_launches`` from phase 16).
+``export_check_launches`` from phase 16; K1, K2, K4 and K6 also
+``bridge_check_launches``, the converted checkpoints' runs of phase 17).
 The last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2548,6 +2568,208 @@ def run_training(lynx_cfg, work: Path, name_limit: str, per_call: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the JAX-checkpoint bridge: phase 13's checkpoints as JAX trees, converted back (K1, K2, K6, K4)
+# ---------------------------------------------------------------------------
+
+BRIDGE_GRAD = 1e-3                  # the fixed gradients of the resume check: N(0, 1) x this
+BRIDGE_SEED = 17
+
+
+def _same_bits(a, b) -> bool:
+    """Two CPU tensors or numpy arrays of one dtype and shape, bit for bit
+    (-0.0 is not 0.0, a NaN equals its own bits)."""
+    import numpy as np
+
+    a, b = (np.ascontiguousarray(x.numpy() if hasattr(x, "numpy") else x) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _tensors_equal(a, b, what: str) -> int:
+    """Raise unless the two state dicts hold the same names, dtypes and bits;
+    returns the tensor count."""
+    from xiaoicesing_io_tpu_torch.bench import check
+
+    check.require(a.keys() == b.keys(), f"{what}: names differ: "
+                  f"{sorted(set(a) ^ set(b))[:5]}")
+    bad = [k for k in a if not _same_bits(a[k], b[k])]
+    check.require(not bad, f"{what}: {len(bad)} tensors differ, e.g. {bad[:5]}")
+    return len(a)
+
+
+def _bridge_model(cfg, category: str):
+    from xiaoicesing_io_tpu_torch.models.toplevel import AcousticModel, VarianceModel
+    from xiaoicesing_io_tpu_torch.training.finetune import freeze_parameters
+
+    model = (AcousticModel if category == "acoustic" else VarianceModel).from_config(
+        cfg, _vocab(cfg))
+    if cfg.get("freezing_enabled", False) and cfg.get("frozen_params"):
+        freeze_parameters(model, cfg["frozen_params"])
+    return model
+
+
+def bridge_convert(cfg, out: Path, name_limit: str) -> tuple:
+    """The work dir's last checkpoint as the JAX package's tree (the port's
+    ``torch_ckpt`` for the params, the optax state in the layout ``cfg``
+    gives), converted back by ``training/jax_bridge.py`` into ``out``; its
+    weights and AdamW state must be the original's bit for bit.  Returns
+    (the original's path, the converted path)."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.training.checkpoint import list_checkpoints, load_checkpoint
+    from xiaoicesing_io_tpu_torch.training.jax_bridge import (
+        convert_jax_tree, jax_tree_from_state,
+    )
+    from xiaoicesing_io_tpu_torch.training.train_state import TrainState
+
+    src = list_checkpoints(cfg["work_dir"])[-1]
+    ckpt = torch.load(src, map_location="cpu", weights_only=False)
+    category = ckpt["category"]
+    state = TrainState(_bridge_model(cfg, category), cfg)
+    load_checkpoint(src, state, expected_category=category)
+    t0 = time.perf_counter()
+    tree = jax_tree_from_state(state.model, state.optimizer.state_dict(), cfg)
+    t_tree = time.perf_counter() - t0
+    meta = {"step": ckpt["global_step"], "category": category, "epoch": ckpt["epoch"]}
+    t0 = time.perf_counter()
+    path = convert_jax_tree(cfg, tree, meta, out)
+    t_convert = time.perf_counter() - t0
+    got = torch.load(path, map_location="cpu", weights_only=False)
+    n = _tensors_equal(ckpt["state_dict"], got["state_dict"], f"{category}: the weights")
+    a, b = ckpt["optimizer_states"][0], got["optimizer_states"][0]
+    check.require(a["param_groups"] == b["param_groups"] and a["state"].keys() == b["state"].keys(),
+                  f"{category}: the AdamW param groups or states differ")
+    for i in a["state"]:
+        _tensors_equal(a["state"][i], b["state"][i], f"{category}: AdamW state {i}")
+    check.require({k: got[k] for k in ("category", "global_step", "epoch")}
+                  == {k: ckpt[k] for k in ("category", "global_step", "epoch")},
+                  f"{category}: category, step or epoch differ")
+    params = sum(v.numel() for v in ckpt["state_dict"].values())
+    log(f"[bridge {category}] {src.name} (step {ckpt['global_step']}, epoch {ckpt['epoch']}) "
+        f"as the JAX tree and back: {n} tensors ({params} values) and the AdamW state of "
+        f"{len(a['state'])} parameters (step {int(next(iter(a['state'].values()))['step'])}) "
+        f"equal bit for bit")
+    log(f"[timing bridge {category}] card={name_limit} tree_s={t_tree:.3f} (state dict + "
+        f"AdamW -> JAX layout) convert_s={t_convert:.3f} (model_from_jax with its round-trip "
+        f"check, optimizer_state_from_jax, torch.save) values={params} "
+        f"file_mb={path.stat().st_size / 2 ** 20:.1f}")
+    return src, path
+
+
+def bridge_resume(cfg, paths, category: str) -> None:
+    """Two updates from each checkpoint with the same fixed gradients on the
+    card: the parameters must end bit for bit equal."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.training.checkpoint import load_checkpoint
+    from xiaoicesing_io_tpu_torch.training.train_state import TrainState
+
+    ends = []
+    for path in paths:
+        state = TrainState(_bridge_model(cfg, category).to(CARD).train(), cfg)
+        meta = load_checkpoint(path, state, expected_category=category)
+        g = torch.Generator(device=CARD).manual_seed(BRIDGE_SEED)
+        for _ in range(2):
+            for p in state.params:
+                p.grad = torch.randn(p.shape, generator=g, device=CARD) * BRIDGE_GRAD
+            state.apply_gradients()
+        ends.append({k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+        del state
+    n = _tensors_equal(ends[0], ends[1], f"{category}: the parameters after two updates")
+    saved = torch.load(paths[0], map_location="cpu", weights_only=False)["state_dict"]
+    changed = sum(not torch.equal(ends[0][k.removeprefix("model.")], v) for k, v in saved.items())
+    check.require(changed > 0, f"{category}: two updates changed no tensor")
+    log(f"[bridge {category}] two updates on the card from each checkpoint (step "
+        f"{meta['step']}, fixed N(0, 1) x {BRIDGE_GRAD} gradients, seed {BRIDGE_SEED}): "
+        f"{n} tensors equal bit for bit, {changed} moved")
+    torch.cuda.empty_cache()
+
+
+def run_bridge(train: Path, work: Path, name_limit: str) -> dict:
+    """Phase 17: phase 13's last acoustic and variance checkpoints as the JAX
+    package's trees, converted back (the weights and AdamW state bit for
+    bit), then the converted files on the card against the originals:
+    ``infer acoustic`` on the sample's first segment (K1, K2, K6) and the
+    variance heads on its bare first segment (K4), mel, wav and predictions
+    bit for bit with exact launches; two resumed updates each.  Returns the
+    converted runs' launches."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config, load_config
+    from xiaoicesing_io_tpu_torch.inference.acoustic import DiffSingerAcousticInfer, load_ds
+    from xiaoicesing_io_tpu_torch.inference.variance import DiffSingerVarianceInfer
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name, _, _ in check.counters()}
+
+    cfg = load_config(None, exp_name="acoustic_exp", work_dir_root=train, infer=True)
+    paths = bridge_convert(cfg, work / "acoustic", name_limit)
+    outs = []
+    for label, c in (("original", cfg), ("converted", Config(cfg, work_dir=str(work / "acoustic")))):
+        runner = DiffSingerAcousticInfer(c, device=CARD)
+        launches, _, rec, _ = drive_main_path(runner, work / f"acoustic_out_{label}",
+                                              load_ds(ROOT / SAMPLE)[:1],
+                                              f"{SAMPLE} segment 0, {label} checkpoint")
+        implied = check.implied_launches(runner, 1, 1)
+        check.check_launches(launches, implied, True, f"the {label} checkpoint's segment")
+        outs.append(([np.asarray(m) for _, _, m in rec["segment"]],
+                     [np.asarray(w) for _, _, w in rec["vocoder"]]))
+        if label == "converted":
+            total = {k: total[k] + launches[k] for k in total}
+            log(f"[bridge acoustic] converted checkpoint: launches {launches}; expected "
+                f"{ {k: v for k, v in implied.items() if v} }, every other kernel 0")
+        del runner
+        torch.cuda.empty_cache()
+    same = all(_same_bits(a, b) for a, b in zip(outs[0][0] + outs[0][1],
+                                                outs[1][0] + outs[1][1]))
+    check.require(same and len(outs[0][0]) == len(outs[1][0]) == 1,
+                  "the converted checkpoint's mel or wav differs from the original's")
+    log(f"[bridge acoustic] mel {outs[0][0][0].shape} and wav {outs[0][1][0].shape} of the "
+        f"converted checkpoint equal the original's bit for bit (seed 0)")
+    bridge_resume(cfg, paths, "acoustic")
+
+    vcfg = load_config(None, exp_name="variance_exp", work_dir_root=train, infer=True)
+    vpaths = bridge_convert(vcfg, work / "variance", name_limit)
+    drop = {"ph_dur", "f0_seq", "f0_timestep", *CURVES, *(f"{v}_timestep" for v in CURVES)}
+    seg = {k: v for k, v in load_ds(ROOT / SAMPLE)[0].items() if k not in drop}
+    vouts = []
+    for label, c in (("original", vcfg),
+                     ("converted", Config(vcfg, work_dir=str(work / "variance")))):
+        runner = DiffSingerVarianceInfer(c, device=CARD)
+        flags = runner.segment_flags(seg)
+        check.require(flags == (True, True, True), f"flags {flags}")
+        batch = runner.preprocess_input(seg)
+        layers = {h: len(b.residual_layers) for h, b in runner.heads().items()}
+        want = {name: 0 for name, _, _ in check.counters()}
+        want["wavenet_block"] = check.sampler_steps(runner) * sum(layers.values())
+        check.zero_launch_counts()
+        out = runner.forward_model(batch, flags, seed=0)
+        torch.cuda.synchronize()
+        launches = check.launch_counts()
+        check.check_launches(launches, want, True, f"the {label} variance checkpoint")
+        vouts.append(out)
+        if label == "converted":
+            total = {k: total[k] + launches[k] for k in total}
+            log(f"[bridge variance] converted checkpoint, bare segment 0 of {SAMPLE}: "
+                f"launches {launches}; expected wavenet_block {check.sampler_steps(runner)} "
+                f"steps x ({' + '.join(f'{h} {k}' for h, k in layers.items())} layers)")
+        del runner
+        torch.cuda.empty_cache()
+    (da, pa, va), (db, pb, vb) = vouts
+    check.require(_same_bits(da, db) and _same_bits(pa, pb) and va.keys() == vb.keys()
+                  and all(_same_bits(va[k], vb[k]) for k in va),
+                  "the converted variance checkpoint's predictions differ from the original's")
+    log(f"[bridge variance] durations, pitch {np.asarray(pa).shape} and {sorted(va)} of the "
+        f"converted checkpoint equal the original's bit for bit (seed 0)")
+    bridge_resume(vcfg, vpaths, "variance")
+    log(f"[done 17] {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # binarization: raw wavs + transcriptions.csv -> binarized sets (no kernel; RMVPE and the
 # vocal-remover net on the card)
 # ---------------------------------------------------------------------------
@@ -3501,6 +3723,7 @@ def main(argv) -> int:
         copysyn = run_copy_synthesis(lynx_cfg, ds_wav, work / "copysyn", name_limit, per_call)
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
         training = run_training(lynx_cfg, work / "train", name_limit, per_call)
+        bridge = run_bridge(work / "train", work / "bridge", name_limit)
         binarization = run_binarization(lynx_cfg, work / "binarize", name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3514,20 +3737,23 @@ def main(argv) -> int:
              replaces="xiaoicesing_io_tpu/ops/pallas/lynx_conv.py:116",
              launches=lynx["lynx_conv_module"],
              eval_path_launches=evaluation["lynx_conv_module"],
-             training_path_launches=training["lynx_conv_module"], library_ms=None, **k1),
+             training_path_launches=training["lynx_conv_module"],
+             bridge_check_launches=bridge["lynx_conv_module"], library_ms=None, **k1),
         dict(name="fused_resblock_stage", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/hifigan_stage.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_stage.py:120",
              launches=lynx["fused_resblock_stage"],
              eval_path_launches=evaluation["fused_resblock_stage"],
-             training_path_launches=training["fused_resblock_stage"], library_ms=None, **k2),
+             training_path_launches=training["fused_resblock_stage"],
+             bridge_check_launches=bridge["fused_resblock_stage"], library_ms=None, **k2),
         dict(name="wavenet_block", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/wavenet_block.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/wavenet_block.py:75",
              launches=wavenet["wavenet_block"],
              variance_path_launches=variance["wavenet_block"],
              eval_path_launches=evaluation["wavenet_block"],
-             training_path_launches=training["wavenet_block"], library_ms=None, **k4),
+             training_path_launches=training["wavenet_block"],
+             bridge_check_launches=bridge["wavenet_block"], library_ms=None, **k4),
         dict(name="mel_spectrogram", route="cuda",
              source="xiaoicesing_io_tpu_torch/csrc/mel_spec.cu",
              replaces="xiaoicesing_io_tpu/ops/pallas/mel_kernel.py:100",
@@ -3549,7 +3775,8 @@ def main(argv) -> int:
              replaces="xiaoicesing_io_tpu/ops/pallas/hifigan_resblock.py:105",
              launches=lynx["resblock_unit"],
              eval_path_launches=evaluation["resblock_unit"],
-             training_path_launches=training["resblock_unit"], library_ms=None, **k6),
+             training_path_launches=training["resblock_unit"],
+             bridge_check_launches=bridge["resblock_unit"], library_ms=None, **k6),
     ]
     for entry in kernels:
         entry["binarize_path_launches"] = binarization[entry["name"]]

@@ -244,12 +244,13 @@ def test_port_has_no_jax_imports():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port, and chip_smoke.py, imports with jax, flax
-    and the JAX package made unimportable."""
+    """Every module of the port, and chip_smoke.py, imports with jax, flax,
+    optax, orbax, tensorstore and the JAX package made unimportable: the
+    JAX-checkpoint reader imports tensorstore inside its functions only."""
     code = f"""
 import importlib, importlib.util, pkgutil, sys
 sys.path.insert(0, {str(ROOT)!r})
-for name in ("jax", "flax", "xiaoicesing_io_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "tensorstore", "xiaoicesing_io_tpu"):
     sys.modules[name] = None
 import xiaoicesing_io_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -264,7 +265,8 @@ for name in ("ops.cuda.lynx_layer", "ops.cuda.lynx_hybrid", "tools.perf_sweep",
              "eval.copy_synthesis", "models.vocoders.ddsp", "preprocessing.acoustic_binarizer",
              "preprocessing.variance_binarizer", "preprocessing.augmentation",
              "preprocessing.align", "models.pe", "models.pe.rmvpe", "models.pe.harvest",
-             "models.hnsep_vr", "dsp.hnsep", "dsp.features", "utils.multiprocess"):
+             "models.hnsep_vr", "dsp.hnsep", "dsp.features", "utils.multiprocess",
+             "utils.orbax_ckpt", "utils.torch_ckpt", "training.jax_bridge"):
     assert pkg.__name__ + "." + name in names, name
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / 'chip_smoke.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -377,7 +377,8 @@ def test_sigterm_checkpoints_and_exits(binary, tmp_path, capsys):
 def test_finetune_blacklist_and_shapes(binary, tmp_path, capsys):
     """Finetuning copies the source's tensors except blacklisted names; a
     shape mismatch raises unless ``finetune_strict_shapes`` is off; a
-    category mismatch and a JAX checkpoint directory raise."""
+    category mismatch and a directory that is no complete JAX checkpoint
+    raise."""
     from xiaoicesing_io_tpu_torch.training.acoustic import build_acoustic
     from xiaoicesing_io_tpu_torch.training.finetune import load_finetune_params
 

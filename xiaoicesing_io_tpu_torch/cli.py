@@ -10,11 +10,14 @@
     python -m xiaoicesing_io_tpu_torch.cli drop_spk my_exp --spk name [--fill zeros] [--out PATH]
     python -m xiaoicesing_io_tpu_torch.cli export acoustic|variance --exp my_exp [--out DIR] [--freeze_* ...]
     python -m xiaoicesing_io_tpu_torch.cli export nsf-hifigan (--exp my_exp | --config cfg.yaml) [--ckpt model.ckpt]
+    python -m xiaoicesing_io_tpu_torch.cli convert_ckpt (--exp my_exp | --config cfg.yaml) [--ckpt_steps N] [--out DIR]
 
 ``--exp`` names a work dir under ``checkpoints/`` (exact name or unique
 prefix) holding ``config.yaml`` or ``config.json`` and a reference-format
-``model_ckpt_steps_*.ckpt``; the config's ``vocoder_ckpt`` names the
-NSF-HiFiGAN ``model.ckpt`` (with its ``config.json`` beside it).
+``model_ckpt_steps_*.ckpt`` or the JAX package's checkpoint directory
+``model_ckpt_steps_*/`` (reading that needs ``tensorstore``); the config's
+``vocoder_ckpt`` names the NSF-HiFiGAN ``model.ckpt`` (with its
+``config.json`` beside it).
 ``infer acoustic --dp`` synthesises the segments in bucket batches and
 vocodes them in groups of equal length (serving mode: one noise stream a
 chunk in place of per-segment seeds).
@@ -39,7 +42,13 @@ latest checkpoint (in place with ``--overwrite``, or into ``--out``); the
 edit is host work, so it takes no ``--device``.  ``export`` writes the ONNX
 graphs, manifest and attachments of an experiment (or of its vocoder) for
 deployment; it loads the checkpoint on the CPU and traces the f32 modules,
-so it takes no ``--device`` either.
+so it takes no ``--device`` either.  ``convert_ckpt`` writes the JAX
+package's checkpoint directory of an experiment (the latest, or step
+``--ckpt_steps``), optimizer state included, as the reference-format
+``model_ckpt_steps_N.ckpt`` (into the work dir, or ``--out``): run it where
+the JAX package (and so ``tensorstore``) is installed, then ``train``
+resumes from that file and every other command reads it, on a host
+without ``tensorstore`` too.  It is host work and takes no ``--device``.
 Every other command runs on CUDA unless ``--device`` names another device.
 """
 
@@ -292,6 +301,40 @@ def drop_spk(args) -> None:
                   overwrite=args.overwrite)
 
 
+def convert_ckpt(args) -> None:
+    import time
+
+    import torch
+
+    from .config import load_config
+    from .training.jax_bridge import convert_jax_checkpoint
+    from .utils import orbax_ckpt
+
+    if args.exp is not None:
+        cfg = load_config(args.config, exp_name=_find_exp(args.exp, args.work_dir),
+                          work_dir_root=args.work_dir, infer=True)
+    elif args.config is not None:
+        cfg = load_config(args.config, infer=True)
+        if not cfg.get("work_dir"):
+            raise SystemExit("| convert_ckpt: the config names no work_dir; pass --exp")
+    else:
+        raise SystemExit("| convert_ckpt: pass --exp or --config")
+    work_dir = pathlib.Path(cfg["work_dir"])
+    dirs = orbax_ckpt.list_checkpoints(work_dir)
+    if args.ckpt_steps is not None:
+        dirs = [p for p in dirs if orbax_ckpt.checkpoint_dir_step(p) == args.ckpt_steps]
+    if not dirs:
+        what = "" if args.ckpt_steps is None else f" of step {args.ckpt_steps}"
+        raise SystemExit(f"| convert_ckpt: no JAX checkpoint directory{what} "
+                         f"(model_ckpt_steps_N/ with a meta.json) in {work_dir}")
+    t0 = time.perf_counter()
+    path = convert_jax_checkpoint(cfg, dirs[-1], args.out or work_dir)
+    seconds = time.perf_counter() - t0
+    ckpt = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    print(f"| converted {dirs[-1]} -> {path}: step {ckpt['global_step']}, category "
+          f"{ckpt['category']}, {len(ckpt['state_dict'])} tensors, {seconds:.2f}s")
+
+
 def export_acoustic(args) -> None:
     from .config import load_config
     from .deployment.export import export_acoustic as _export
@@ -491,6 +534,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="allow replacing an existing checkpoint (required for in-place edits)")
     ds.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
     ds.set_defaults(func=drop_spk)
+
+    cc = sub.add_parser("convert_ckpt", help="Write a JAX checkpoint directory (with its "
+                        "optimizer state) as a reference-format .ckpt")
+    cc.add_argument("--exp", default=None, help="experiment name or unique prefix")
+    cc.add_argument("--config", default=None,
+                    help="configuration (naming work_dir; alternative to --exp)")
+    cc.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
+    cc.add_argument("--ckpt_steps", type=int, default=None,
+                    help="the step to convert (default: the latest)")
+    cc.add_argument("--out", default=None, help="output directory (default: the work dir)")
+    cc.set_defaults(func=convert_ckpt)
     _add_export_parsers(sub)
     return parser
 

@@ -2,9 +2,14 @@
 
 Counterpart of the JAX package's ``deployment/drop_spk.py``: drop (or retain)
 speaker ids in a checkpoint's speaker table with a zeros, random, mean or
-cyclic fill.  It works on the reference-format ``model_ckpt_steps_*.ckpt``
-that this package's trainer writes and its runners read; every other tensor
-and every other key of the file is written back as it was.
+cyclic fill.  It works on the checkpoint the runners read
+(``training/checkpoint.find_model_checkpoint``): a reference-format
+``model_ckpt_steps_*.ckpt``, whose every other tensor and key is written
+back as it was, or a JAX checkpoint directory, which is converted with its
+optimizer state (``training/jax_bridge.py``; needs ``tensorstore``) and
+written as a reference-format ``.ckpt``: to ``out``, or beside the
+directory as ``model_ckpt_steps_N.ckpt``, which the runners then read in
+its place.  The JAX package writes an orbax directory instead.
 """
 
 from __future__ import annotations
@@ -66,13 +71,12 @@ def drop_speakers(exp: str, spk: List[str], fill: str = "zeros",
     ``out`` the scrubbed checkpoint is written there (an existing file only
     with ``overwrite``); otherwise the checkpoint is edited in place, which
     needs ``overwrite``: the new file is written beside it and swapped in
-    after the save succeeded.  Returns the path written."""
-    from ..training.checkpoint import latest_checkpoint
+    after the save succeeded (a JAX directory stays, and the ``.ckpt`` of its
+    step is written beside it).  Returns the path written."""
+    from ..training.checkpoint import find_model_checkpoint
 
     work_dir = Path(work_dir_root) / exp
-    path = latest_checkpoint(work_dir)
-    if path is None:
-        raise FileNotFoundError(f"no model_ckpt_steps_*.ckpt found in {work_dir}")
+    path = find_model_checkpoint(work_dir)
     spk_map = {}
     if (work_dir / "spk_map.json").exists():
         spk_map = json.loads((work_dir / "spk_map.json").read_text(encoding="utf-8"))
@@ -85,10 +89,18 @@ def drop_speakers(exp: str, spk: List[str], fill: str = "zeros",
         raise PermissionError(f"refusing to edit {path} in place without --overwrite "
                               f"(pass --out to write elsewhere)")
     else:
-        dest = path
+        dest = path.with_name(path.name + ".ckpt") if path.is_dir() else path
 
-    # reference Lightning checkpoints hold more than tensors
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if path.is_dir():
+        from ..config import load_config
+        from ..training.jax_bridge import checkpoint_from_jax
+        from ..utils.orbax_ckpt import read_checkpoint
+
+        cfg = load_config(None, exp_name=exp, work_dir_root=work_dir_root, infer=True)
+        ckpt = checkpoint_from_jax(cfg, *read_checkpoint(path))
+    else:
+        # reference Lightning checkpoints hold more than tensors
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
     state = ckpt.get("state_dict", ckpt)
     tables = [k for k in SPK_TABLES if k in state]
     if not tables:

@@ -259,19 +259,17 @@ def export_acoustic(cfg, out_dir: Optional[str] = None, ckpt_steps=None, fmt: st
     exported input surface (deployment/modules/fastspeech2.py:43-108);
     ``freeze_*`` bakes a constant curve / speaker mix in instead
     (ref: acoustic_exporter.py:57-79)."""
-    from ..inference.acoustic import find_checkpoint
     from ..models.toplevel import load_acoustic_state_dict
     from ..training.acoustic import build_acoustic
+    from ..training.checkpoint import load_model_state_dict
 
     _check_format(fmt)
     out = Path(out_dir or (Path("artifacts") / cfg["exp_name"]))
     out.mkdir(parents=True, exist_ok=True)
     encoder = _phoneme_encoder(cfg)
     model, core, normalizer = build_acoustic(cfg, encoder.vocab_size)
-    # reference Lightning checkpoints hold more than tensors
-    ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
-                      weights_only=False)
-    load_acoustic_state_dict(model, ckpt.get("state_dict", ckpt))
+    load_acoustic_state_dict(model, load_model_state_dict(cfg["work_dir"], cfg, "acoustic",
+                                                          ckpt_steps))
     model.eval()
 
     B, T_ph, T_f, M = 1, 64, 512, cfg["audio_num_mel_bins"]

@@ -40,12 +40,12 @@ from .metrics import mcd, mel_mae
 
 
 def _checkpoint_step(work_dir) -> int:
-    """The step of the checkpoint the runners load by default (the latest
-    ``model_ckpt_steps_*.ckpt``), -1 without one."""
-    from ..inference.acoustic import find_checkpoint
+    """The step of the checkpoint the runners load by default
+    (``training/checkpoint.find_model_checkpoint``), -1 without one."""
+    from ..training.checkpoint import find_model_checkpoint
 
     try:
-        ck = find_checkpoint(work_dir)
+        ck = find_model_checkpoint(work_dir)
     except FileNotFoundError:
         return -1
     return int(re.search(r"(\d+)", ck.name).group(1))

@@ -35,7 +35,6 @@ config without these keys runs exactly the plain path.
 from __future__ import annotations
 
 import json
-import re
 from collections import OrderedDict
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -54,6 +53,7 @@ from ..models.diffusion.core import GaussianDiffusion
 from ..models.toplevel import VARIANCE_CHECKLIST, load_acoustic_state_dict
 from ..ops.seq import length_regulator
 from ..training.acoustic import build_acoustic
+from ..training.checkpoint import load_model_state_dict
 from ..utils import fresh_seed, generator_from_seed, resolve_device
 from ..utils.curves import cross_fade, resample_align_curve
 from ..utils.phonemes import PhonemeDictionary, locate_dictionary
@@ -67,17 +67,6 @@ def _bucket(n: int) -> int:
     return max(BUCKET, ((n + BUCKET - 1) // BUCKET) * BUCKET)
 
 
-def find_checkpoint(work_dir, ckpt_steps: Optional[int] = None) -> Path:
-    """The latest (or the given step's) ``model_ckpt_steps_*.ckpt`` in ``work_dir``."""
-    ckpts = sorted(Path(work_dir).glob("model_ckpt_steps_*.ckpt"),
-                   key=lambda p: int(re.search(r"(\d+)", p.stem).group(1)))
-    if ckpt_steps is not None:
-        ckpts = [p for p in ckpts if int(re.search(r"(\d+)", p.stem).group(1)) == int(ckpt_steps)]
-    if not ckpts:
-        raise FileNotFoundError(f"No model_ckpt_steps_*.ckpt found in {work_dir}")
-    return ckpts[-1]
-
-
 class DiffSingerAcousticInfer(BaseSVSInfer):
     def __init__(self, cfg, load_vocoder: bool = True, ckpt_steps=None, device=None):
         super().__init__(cfg)
@@ -87,10 +76,8 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         )
         self.ph_encoder = TokenTextEncoder(phdict.phoneme_list)
         model, core, normalizer = build_acoustic(cfg, self.ph_encoder.vocab_size)
-        # reference Lightning checkpoints hold more than tensors
-        ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
-                          weights_only=False)
-        load_acoustic_state_dict(model, ckpt.get("state_dict", ckpt))
+        load_acoustic_state_dict(model, load_model_state_dict(cfg["work_dir"], cfg, "acoustic",
+                                                              ckpt_steps))
         self._setup(model.to(device).eval(), core, normalizer)
         if load_vocoder:
             from ..models.vocoders import get_vocoder_cls

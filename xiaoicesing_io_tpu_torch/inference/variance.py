@@ -42,12 +42,12 @@ from ..models.toplevel import (
     VARIANCE_CHECKLIST, VarianceModel, build_variance_normalizers, load_variance_state_dict,
 )
 from ..ops.seq import length_regulator, mel2ph_to_dur, rhythm_regulator
+from ..training.checkpoint import load_model_state_dict
 from ..utils import fresh_seed, generator_from_seed, resolve_device
 from ..utils.curves import interp_f0, resample_align_curve, smooth_curve
 from ..utils.music import hz_to_midi, midi_to_hz, note_to_midi
 from ..utils.phonemes import PhonemeDictionary, locate_dictionary
 from ..utils.text_encoder import TokenTextEncoder
-from .acoustic import find_checkpoint
 from .base import BaseSVSInfer, speaker_mix_embed
 
 
@@ -83,10 +83,8 @@ def load_variance_model(cfg, vocab_size: int, ckpt_steps=None, device="cpu") -> 
     """The variance model of ``cfg`` with the weights of the work dir's
     latest (or ``ckpt_steps``') checkpoint, on ``device``, in eval mode."""
     model = VarianceModel.from_config(cfg, vocab_size)
-    # reference Lightning checkpoints hold more than tensors
-    ckpt = torch.load(find_checkpoint(cfg["work_dir"], ckpt_steps), map_location="cpu",
-                      weights_only=False)
-    load_variance_state_dict(model, ckpt.get("state_dict", ckpt))
+    load_variance_state_dict(model, load_model_state_dict(cfg["work_dir"], cfg, "variance",
+                                                          ckpt_steps))
     return model.to(device).eval()
 
 

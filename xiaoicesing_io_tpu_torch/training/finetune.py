@@ -10,7 +10,11 @@ JAX package matches them against its flax paths instead
 for one package can select other tensors, or none, in the other.
 
 The finetune source is a reference-format ``.ckpt`` file (this package's
-own checkpoints are such files).  A JAX checkpoint directory is refused.
+own checkpoints are such files) or a JAX checkpoint directory
+``model_ckpt_steps_N/``, whose params are carried under the reference names
+(``training/jax_bridge.state_dict_from_jax``; reading one needs
+``tensorstore``).  Its ``meta.json`` category is checked as the JAX package
+checks it; then both kinds merge alike.
 """
 
 from __future__ import annotations
@@ -46,20 +50,30 @@ def load_finetune_params(model: torch.nn.Module, cfg, model_category: str) -> No
     from ..models.toplevel import _ALIASES, _VARIANCE_ALIASES, _reference_state_dict
 
     ckpt_path = Path(cfg["finetune_ckpt_path"])
-    if ckpt_path.is_dir():
-        raise ValueError(
-            f"finetune_ckpt_path {str(ckpt_path)!r} is a directory (a JAX checkpoint); "
-            "this package finetunes from a reference-format model_ckpt_steps_*.ckpt file")
     blacklist = [_norm_prefix(b) for b in (cfg.get("finetune_ignored_params") or [])]
     strict_shapes = cfg.get("finetune_strict_shapes", True)
-    # reference Lightning checkpoints hold more than tensors
-    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
-    if ckpt.get("category") not in (None, model_category):
-        raise ValueError(
-            f"Finetune checkpoint category {ckpt.get('category')!r} != {model_category!r}")
+    def check(category):
+        if category not in (None, model_category):
+            raise ValueError(f"Finetune checkpoint category {category!r} != {model_category!r}")
+
+    if ckpt_path.is_dir():
+        from ..utils.orbax_ckpt import read_checkpoint, read_meta
+        from .jax_bridge import state_dict_from_jax
+
+        if not (ckpt_path / "meta.json").exists():
+            raise ValueError(f"finetune_ckpt_path {str(ckpt_path)!r} is a directory without "
+                             "meta.json: no complete JAX checkpoint")
+        check(read_meta(ckpt_path).get("category"))
+        params, _ = read_checkpoint(ckpt_path, subtree="params")
+        state_dict = state_dict_from_jax(params, cfg, model_category)
+    else:
+        # reference Lightning checkpoints hold more than tensors
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+        check(ckpt.get("category"))
+        state_dict = ckpt.get("state_dict", ckpt)
     variance = model_category == "variance"
     src = _reference_state_dict(
-        ckpt.get("state_dict", ckpt), _VARIANCE_ALIASES if variance else _ALIASES,
+        state_dict, _VARIANCE_ALIASES if variance else _ALIASES,
         ("pitch_predictor", "variance_predictor") if variance else ("diffusion",))
     dst = model.state_dict()
     loaded = skipped = mismatched = 0
