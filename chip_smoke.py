@@ -234,6 +234,37 @@ Phases, each printed on its own line:
      and curves bit for bit, K4 once per layer per step of both heads,
      nothing else.  Then two updates from each file with the same fixed
      gradients on the card: the parameters bit for bit equal.
+ 18. several cards (``parallel/mesh.py``).  (c), after phase 15 on its two
+     experiments: the sample ``.ds`` through ``run_inference(
+     data_parallel=True)`` with ``devices`` every visible card, then
+     ``[cuda:0, cuda:0]`` (each chunk padded to a multiple of the devices
+     and cut into one slice a device), the launch counters zeroed just
+     before each run and read just after: K1 (LYNXNet) or K4 (WaveNet)
+     exactly ``n_dev`` x phase 15's count, K2 and K6 phase 15's, nothing
+     else; every segment's mel within ``bench/check.py``'s bars of the
+     one-device run at the same seed, the largest difference printed; then
+     ``samples/02_一半一半.ds`` with one and two replicas on the card
+     (audio-s/s, no speed claim).  (a) and (b), after phase 17 on phase 13's
+     sets: (a) two ranks spawned on the one card under ``gloo`` (NCCL takes
+     one card a rank), each through ``Trainer``'s sampler, shape agreement
+     and train step, two updates of the shipped acoustic configuration
+     (LYNXNet 1024 x 6) and of the variance one at about 12,000 real frames
+     a rank, f32, TF32 off, dropout 0: the ranks' parameters and gradients
+     bit for bit equal, the first update's gradients within 1e-3 of each
+     tensor's scale of one process's step on the concatenated batches, no
+     kernel launched; each process's ms per update and peak memory.  Where
+     the machine has two or more cards (a) runs again under NCCL, one card a
+     rank; otherwise a line says why not.  (b) ``Trainer.fit`` of the
+     shipped acoustic configuration (4 updates, validating at 2 and 4 with
+     2 plots, deterministic algorithms) in a process of its own in an NCCL
+     group of one rank (its all-reduce, broadcast and barrier run first)
+     and in another in no group: every parameter bit for bit equal, K1, K2
+     and K6 launching as phase 13's acoustic leg predicts for that run.
+     Each line carries the card's name and power limit.  ``python3
+     chip_smoke.py --dp-only`` runs phase 18 alone after the build, on the
+     experiments and sets made afresh (for a machine of several cards: (a)
+     under NCCL across all of them, (c) over all of them); it prints no
+     kernels line.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -311,7 +342,9 @@ for K4 (its ``variance_path_launches`` from phase 7b); phase 8 for K3; phase 9, 
 K8; K1, K2, K4 and K6 also carry ``eval_path_launches`` from phase 12;
 every entry carries ``serve_path_launches`` from phase 15 and
 ``export_check_launches`` from phase 16; K1, K2, K4 and K6 also
-``bridge_check_launches``, the converted checkpoints' runs of phase 17).
+``bridge_check_launches``, the converted checkpoints' runs of phase 17;
+every entry ``dp_serve_launches``, phase 18 (c)'s four runs summed, and
+``dp_train_launches``, phase 18 (b)'s run in the NCCL group).
 The last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -1874,7 +1907,7 @@ PESQ_SAME = 1e-6        # one item with and without pad_frames_to: the host's ro
 def write_set(directory: Path, prefix: str, items: list) -> None:
     """A binarized set as the binarizers write it: the items through the
     port's ``IndexedDatasetBuilder`` and the ``.meta`` pickle (frame counts,
-    names)."""
+    each array's length, names)."""
     import pickle
 
     from xiaoicesing_io_tpu_torch.data.indexed_dataset import IndexedDatasetBuilder
@@ -1886,6 +1919,8 @@ def write_set(directory: Path, prefix: str, items: list) -> None:
     builder.finalize()
     with open(directory / f"{prefix}.meta", "wb") as f:
         pickle.dump({"lengths": [len(it["mel2ph"]) for it in items],
+                     **{k: [len(it[k]) for it in items] for k in items[0]
+                        if getattr(items[0][k], "ndim", 0)},
                      "names": [f"segment{i}" for i in range(len(items))]}, f)
 
 
@@ -3636,6 +3671,466 @@ def run_export(lynx_runner, variance_cfg, work: Path, name_limit: str) -> dict:
 BENCH_KEEP = ('{"metric"', "[check", "[trace", "[cell", "[setup", "[metric")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: several cards. Data-parallel training (two gloo ranks sharing the
+# card; NCCL at one rank, and across cards where there are several) and
+# serving over several devices (K1 / K4 on every replica, K2 and K6 after)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_FRAMES = 12000            # (a): each rank's frame budget (max_batch_frames)
+DP_ROWS = 16                 # (a): max_batch_size
+DP_GRAD_TOL = 1e-3           # (a): gradients against one process's, of each tensor's scale
+DP_FIT_STEPS, DP_FIT_VAL_EVERY = 4, 2   # (b)
+
+
+def _dp_spawn(fn, world: int, work: Path, *args, timeout: float = 600.0) -> list:
+    """``fn(rank, world, work, *args)`` in ``world`` spawned processes;
+    their results (``torch.save``) in rank order.  A process that raises
+    writes its traceback, which is raised here; every process is joined (or
+    killed at the time limit) before this returns."""
+    import multiprocessing as mp
+
+    import torch
+
+    work.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_entry, args=(fn, r, world, str(work), args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    errors = [(work / f"error_{r}.txt").read_text() for r in range(world)
+              if (work / f"error_{r}.txt").exists()]
+    if errors or alive or any(p.exitcode for p in procs):
+        raise RuntimeError(f"{fn.__name__}: exit codes {[p.exitcode for p in procs]}, "
+                           f"{len(alive)} killed at {timeout:.0f} s\n" + "\n".join(errors))
+    return [torch.load(work / f"result_{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _dp_entry(fn, rank: int, world: int, work: str, args) -> None:
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = fn(rank, world, Path(work), *args)
+        torch.save(out, Path(work) / f"result_{rank}.pt")
+    except BaseException:
+        (Path(work) / f"error_{rank}.txt").write_text(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dp_cfgs(lynx_cfg, train: Path, work: Path, frames: int) -> dict:
+    """(a)'s configurations: phase 13's shipped acoustic (LYNXNet 1024 x 6)
+    and variance (energy, breathiness) ones on phase 13's sets, in f32,
+    dropout 0 (the ranks' dropout streams differ from one process's), a
+    frame budget of ``frames`` a rank."""
+    from xiaoicesing_io_tpu_torch.config import Config, variance_defaults
+
+    acoustic = Config(lynx_cfg, binary_data_dir=str(train / "acoustic_binary"),
+                      work_dir=str(work / "acoustic_exp"), precision="fp32", dropout=0.0,
+                      max_batch_frames=frames, max_batch_size=DP_ROWS)
+    acoustic["shallow_diffusion_args"]["aux_decoder_args"]["dropout_rate"] = 0.0
+    variance = variance_defaults()
+    variance.update(dictionary=lynx_cfg["dictionary"],
+                    binary_data_dir=str(train / "variance_binary"),
+                    work_dir=str(work / "variance_exp"), predict_energy=True,
+                    predict_breathiness=True, precision="fp32", dropout=0.0,
+                    max_batch_frames=frames, max_batch_size=DP_ROWS)
+    variance["dur_prediction_args"]["dropout"] = 0.0
+    return {"acoustic": acoustic, "variance": variance}
+
+
+def _flat(tensors) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def _dp_updates(trainer, generator, batches, shard=None):
+    """Two updates of ``trainer``'s step on ``batches`` (numpy; one for
+    each update); returns (the first update's gradients as the clip received
+    them, ms of each update on the card's timeline)."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.training import train_state as ts
+    from xiaoicesing_io_tpu_torch.training.trainer import widen_batch
+
+    seen, ms = [], []
+    clip = ts.clip_by_global_norm
+
+    def recorded(grads, max_norm):
+        seen.append([g.detach().clone() for g in grads])
+        return clip(grads, max_norm)
+
+    ts.clip_by_global_norm = recorded
+    try:
+        for batch in batches:
+            tensors = widen_batch(trainer._to_device(batch))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            kw = {"shard": shard} if shard else {}
+            updated, _ = trainer.train_step(trainer.state, tensors, generator, **kw)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            check.require(updated, "an update did not happen")
+    finally:
+        ts.clip_by_global_norm = clip
+    return seen[0], ms
+
+
+def _dp_train_rank(rank: int, world: int, work: Path, backend: str, cfgs: dict,
+                   devices: list) -> dict:
+    """(a) on one rank: for each configuration, the trainer of a group of
+    ``world`` ranks (``backend``, this rank on ``devices[rank]``) takes two
+    updates on its sampler batches (restored and broadcast from rank 0 as
+    ``fit`` does, the draws the global batch's); rank 0 holds its
+    parameters and gradients against every other rank's, bit for bit, and
+    the other ranks save their batches.  Then, out of the group, rank 0
+    takes the same two updates in one process on the ranks' batches
+    concatenated in rank order, from the same seed: the first update's
+    gradients against the ranks'.  Every kernel must launch 0 times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.parallel import mesh
+    from xiaoicesing_io_tpu_torch.training.tasks import (
+        build_acoustic_trainer, build_variance_trainer,
+    )
+
+    build = {"acoustic": build_acoustic_trainer, "variance": build_variance_trainer}
+    device = torch.device(devices[rank])
+    mesh.init_distributed(num_processes=world, process_id=rank, backend=backend, device=device,
+                          init_method=f"file://{work}/rendezvous_{backend}")
+    out, kept = {}, {}
+    check.zero_launch_counts()
+    for leg, cfg in cfgs.items():
+        trainer = build[leg](cfg, device=device, writer=None)
+        trainer._restore()
+        sampler = trainer._make_sampler(0)
+        batches = [trainer._collate_train(sampler.batches[i],
+                                          trainer._global_shape_targets(sampler, i))
+                   for i in range(2)]
+        generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)))
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        grads, ms = _dp_updates(trainer, generator, batches, shard=(rank, world))
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        params, flat_g = _flat(trainer.state.params), _flat(grads)
+        equal = [True, True]
+        for src in range(1, world):
+            for i, mine in enumerate((params, flat_g)):
+                theirs = mine.clone()
+                dist.broadcast(theirs, src)
+                equal[i] = equal[i] and bool(torch.equal(mine, theirs))
+                del theirs
+        if rank > 0:
+            torch.save(batches, work / f"batches_{leg}_{rank}.pt")
+        mesh.barrier()
+        out[leg] = {"ms": ms, "peak_gib": peak, "params_equal": equal[0],
+                    "grads_equal": equal[1],
+                    "rows": [int(b["mel2ph"].shape[0]) for b in batches],
+                    "frames": [int(b["mel2ph"].shape[1]) for b in batches],
+                    "real_frames": [int((b["mel2ph"] > 0).sum()) for b in batches],
+                    "n_params": int(params.numel())}
+        if rank == 0:
+            kept[leg] = ([g.cpu() for g in grads], params.cpu(), batches)
+        del trainer, grads, params, flat_g
+        torch.cuda.empty_cache()
+    out["launches"] = check.launch_counts()
+    dist.destroy_process_group()
+    if rank == 0:  # one process on the concatenated batches
+        for leg, cfg in cfgs.items():
+            grads, params, batches = kept.pop(leg)
+            every = [batches] + [torch.load(work / f"batches_{leg}_{r}.pt", weights_only=False)
+                                 for r in range(1, world)]
+            whole = [{k: np.concatenate([b[i][k] for b in every]) for k in batches[i]}
+                     for i in range(len(batches))]
+            trainer = build[leg](cfg, device=device, writer=None)
+            generator = torch.Generator(device=device).manual_seed(int(cfg.get("seed", 0)))
+            torch.cuda.reset_peak_memory_stats(device)
+            ref, ms = _dp_updates(trainer, generator, whole)
+            worst, worst_name = 0.0, None
+            names = [n for n, p in trainer.state.model.named_parameters() if p.requires_grad]
+            for name, g, r in zip(names, grads, ref):
+                r = r.float().cpu()
+                err = float((g.float() - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                if err > worst:
+                    worst, worst_name = err, name
+            p_ref = _flat(trainer.state.params).cpu()
+            out[leg].update(grad_worst=worst, grad_worst_name=worst_name,
+                            params_worst=float((params - p_ref).abs().max())
+                            / float(p_ref.abs().max()),
+                            one_process_ms=ms,
+                            one_process_peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+            del trainer, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dp_fit_process(rank: int, world: int, work: Path, cfg) -> dict:
+    """(b): ``Trainer.fit`` in a process of its own with deterministic
+    algorithms, process 0 in an NCCL group of one rank (its all-reduce,
+    broadcast and barrier run first), process 1 in no group, each in a work
+    dir of its own; its launches and a digest of every parameter."""
+    import hashlib
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config
+    from xiaoicesing_io_tpu_torch.training.tasks import build_acoustic_trainer
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    group = "nccl" if rank == 0 else "none"
+    out = {"group": group}
+    if group == "nccl":
+        dist.init_process_group("nccl", init_method=f"file://{work}/rendezvous_nccl1",
+                                world_size=1, rank=0, device_id=device)
+        t = torch.arange(8.0, device=device)
+        dist.all_reduce(t)
+        dist.broadcast(t, 0)
+        dist.barrier()
+        check.require(torch.equal(t, torch.arange(8.0, device=device)),
+                      "NCCL at one rank changed a tensor")
+        out["backend"] = dist.get_backend()
+    torch.manual_seed(0)
+    trainer = build_acoustic_trainer(Config(cfg, work_dir=str(work / f"exp_{group}")),
+                                     device=device, writer=Recorder())
+    check.zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, launches=check.launch_counts(),
+               step=trainer.state.step, audio=len(trainer.writer.audio),
+               digest={n: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+                       for n, p in trainer.state.model.named_parameters()})
+    return out
+
+
+def run_dp_training(lynx_cfg, train: Path, work: Path, name_limit: str, per_call: dict) -> dict:
+    """Phase 18 (a) and (b), on phase 13's sets.  (a) Two ranks on the one
+    card under ``gloo``, each with its own sampler batches of the shipped
+    acoustic and variance configurations (f32, TF32 off), two updates: the
+    ranks' parameters bit for bit equal, their first update's gradients
+    within ``DP_GRAD_TOL`` of each tensor's scale of one process's on the
+    concatenated batches; each process's ms per update and peak memory.
+    Where there are two or more cards, the same under NCCL, one card a rank.
+    (b) ``Trainer.fit`` of the shipped acoustic configuration
+    (``DP_FIT_STEPS`` updates, validating every ``DP_FIT_VAL_EVERY`` with
+    ``TRAIN_PLOTS`` plots) in an NCCL group of one rank against the same fit
+    in no group: every parameter bit for bit, the extras' launches exactly
+    phase 13's prediction for that run.  Returns (b)'s launches."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = [("gloo", ["cuda:0"] * DP_RANKS)]
+    if cards >= 2:
+        runs.append(("nccl", [f"cuda:{r}" for r in range(cards)]))
+    else:
+        log(f"[dp train nccl] not run: {cards} card; NCCL takes one card a rank (two ranks on "
+            f"one card: 'Duplicate GPU detected')")
+    for backend, devices in runs:
+        # the global batch stays at DP_RANKS x DP_FRAMES frames, so every rank takes two steps
+        cfgs = _dp_cfgs(lynx_cfg, train, work / backend, DP_FRAMES * DP_RANKS // len(devices))
+        t0 = time.perf_counter()
+        ranks = _dp_spawn(_dp_train_rank, len(devices), work / f"ranks_{backend}", backend,
+                          cfgs, devices)
+        seconds = time.perf_counter() - t0
+        for r in ranks:
+            check.require(not any(r["launches"].values()),
+                          f"a train step launched a kernel: {r['launches']}")
+        for leg in cfgs:
+            r0 = ranks[0][leg]
+            per_rank = "; ".join(
+                f"rank {i}: real frames {r[leg]['real_frames']}, ms per update "
+                f"{' '.join(f'{m:.2f}' for m in r[leg]['ms'])}, peak_mem_gib "
+                f"{r[leg]['peak_gib']:.3f}" for i, r in enumerate(ranks))
+            log(f"[dp train {backend} {leg}] card={name_limit} {len(devices)} ranks on "
+                f"{devices}, f32 TF32 off, {r0['n_params']} parameters; batches a rank: rows "
+                f"{r0['rows']}, frames {r0['frames']}; {per_rank}; one process on the ranks' "
+                f"batches: ms {' '.join(f'{m:.2f}' for m in r0['one_process_ms'])}, "
+                f"peak_mem_gib {r0['one_process_peak_gib']:.3f}; parameters bit for bit equal "
+                f"across ranks {r0['params_equal']}, gradients {r0['grads_equal']}; first "
+                f"update's gradients against one process: worst {r0['grad_worst']:.3g} of "
+                f"its scale ({r0['grad_worst_name']}; tolerance {DP_GRAD_TOL}); parameters "
+                f"after two updates {r0['params_worst']:.3g} of their scale")
+            check.require(r0["params_equal"] and r0["grads_equal"],
+                          f"{backend} {leg}: the ranks' parameters or gradients differ")
+            check.require(r0["grad_worst"] <= DP_GRAD_TOL,
+                          f"{backend} {leg}: the ranks' gradients disagree with one process's")
+        log(f"[dp train {backend}] {seconds:.1f}s for both configurations (process start "
+            f"included)")
+
+    cfg = Config(lynx_cfg, binary_data_dir=str(train / "acoustic_binary"),
+                 max_updates=DP_FIT_STEPS, val_check_interval=DP_FIT_VAL_EVERY,
+                 num_valid_plots=TRAIN_PLOTS, log_interval=DP_FIT_VAL_EVERY,
+                 max_batch_frames=DP_FRAMES)
+    t0 = time.perf_counter()
+    fits = {f["group"]: f for f in _dp_spawn(_dp_fit_process, 2, work / "fit", cfg)}
+    seconds = time.perf_counter() - t0
+    layers, steps = cfg["backbone_args"]["num_layers"], cfg["sampling_steps"]
+    n_val = DP_FIT_STEPS // DP_FIT_VAL_EVERY
+    expect = {name: 0 for name, _, _ in check.counters()}
+    expect["lynx_conv_module"] = n_val * TRAIN_PLOTS * steps * layers
+    expect.update({k: v * (n_val * TRAIN_PLOTS + TRAIN_PLOTS) for k, v in per_call.items()})
+    nccl, alone = fits["nccl"], fits["none"]
+    same = [n for n in alone["digest"] if nccl["digest"][n] == alone["digest"][n]]
+    log(f"[dp train fit] card={name_limit} Trainer.fit of the shipped acoustic configuration "
+        f"({DP_FIT_STEPS} updates, validations every {DP_FIT_VAL_EVERY}, {TRAIN_PLOTS} plots, "
+        f"deterministic algorithms) in an NCCL group of one rank ({nccl.get('backend')}) and in "
+        f"no group, side by side on the card: steps {nccl['step']} / {alone['step']}; fit seconds "
+        f"{nccl['seconds']:.2f} / {alone['seconds']:.2f} ({seconds:.1f}s with the processes' "
+        f"start); parameters bit "
+        f"for bit equal: {len(same)} of {len(alone['digest'])} tensors; launches "
+        f"{nccl['launches']} / {alone['launches']}; expected "
+        f"{ {k: v for k, v in expect.items() if v} }, every other kernel 0")
+    check.check_launches(nccl["launches"], expect, True, "the fit in an NCCL group of one rank")
+    check.check_launches(alone["launches"], expect, True, "the fit in no group")
+    check.require(len(same) == len(alone["digest"]) and nccl["step"] == DP_FIT_STEPS,
+                  "the fit in an NCCL group of one rank differs from the fit in no group")
+    log(f"[done 18ab] {time.perf_counter() - t_phase:.1f}s")
+    return nccl["launches"]
+
+
+def run_dp_only(name_limit: str) -> None:
+    """Phase 18 alone (``--dp-only``): the experiments of phases 6 and 7
+    and phase 13's sets made afresh, then (c), (a) and (b)."""
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import cells, check
+
+    work = ROOT / ".work" / "chip_smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        lynx, _ = cells.open_cell("lynx_reflow_b4_t2048", work / "lynx", device="cuda")
+        wavenet, _ = cells.open_cell("wavenet_ddpm_b4_t2048", work / "wavenet", device="cuda")
+        run_dp_serving(lynx, wavenet, work / "dp_serve", name_limit)
+        cfg, per_call = lynx.cfg, check.vocoder_calls(lynx.vocoder)
+        del lynx, wavenet
+        torch.cuda.empty_cache()
+        vocab = _vocab(cfg)
+        _write_sets(work / "train" / "acoustic_binary", acoustic_train_items, vocab)
+        _write_sets(work / "train" / "variance_binary", variance_train_items, vocab)
+        run_dp_training(cfg, work / "train", work / "dp_train", name_limit, per_call)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_dp_serving(lynx_runner, wavenet_runner, work: Path, name_limit: str) -> dict:
+    """Phase 18 (c), on the experiments of phases 6 and 7 after phase 15:
+    the sample ``.ds`` through ``run_inference(data_parallel=True)`` with
+    ``devices`` every visible card, then ``[cuda:0, cuda:0]``, the launch
+    counters zeroed just before each run and read just after: K1 (LYNXNet)
+    or K4 (WaveNet) exactly ``n_dev`` x phase 15's count, K2 and K6 phase
+    15's, nothing else; every segment's mel within ``bench/check.py``'s
+    bars of the one-device run at the same seed (phase 15's), the largest
+    difference printed.  Then ``SERVE_TIMING`` on the LYNXNet experiment
+    with one and two replicas (audio-s/s; not a speed claim).  Returns the
+    launches, summed."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.bench import check
+    from xiaoicesing_io_tpu_torch.bench.cells import _silent
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.inference.serving import DataParallelSynthesizer, plan_chunks
+
+    t_phase = time.perf_counter()
+    every = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    shared = [torch.device("cuda", 0)] * 2
+    total = {name: 0 for name, _, _ in check.counters()}
+    params = load_ds(ROOT / SAMPLE)
+    for label, runner in (("lynx_reflow", lynx_runner), ("wavenet_ddpm", wavenet_runner)):
+        batches = [_silent(runner.preprocess_input, p) for p in params]
+        lengths = [b["mel2ph"].shape[1] for b in batches]
+        one, _ = _silent(DataParallelSynthesizer(runner, [runner.device]).synthesize_mels,
+                         params, seed=0, batches=batches)
+        for devices in (every, shared):
+            n_dev = len(devices)
+            plan = plan_chunks(lengths, None, n_dev)
+            want = check.implied_launches(runner, len(plan), len(set(lengths)))
+            denoiser = "wavenet_block" if runner.backbone_type == "wavenet" else "lynx_conv_module"
+            want[denoiser] *= n_dev
+            hooks, rec = record_serving()
+            torch.cuda.synchronize()
+            check.zero_launch_counts()
+            t0 = time.perf_counter()
+            with hooks:
+                _silent(runner.run_inference, params, out_dir=work / label, title="dp", seed=0,
+                        data_parallel=True, devices=devices)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = check.launch_counts()
+            check.check_launches(launches, want, True, f"the {label} run on {devices}")
+            for k, v in launches.items():
+                total[k] += v
+            mels = rec["mels"][1][0]
+            wavs = rec["wavs"][1]
+            worst = {"mel_rel_err": 0.0, "mel_corr": 1.0, "max_abs": 0.0}
+            for i, (m, ref) in enumerate(zip(mels, one, strict=True)):
+                got = check.compare_mel(m, ref)
+                check.require(got["mel_ok"], f"{label} on {devices}: segment {i}: {got}")
+                worst["mel_rel_err"] = max(worst["mel_rel_err"], got["mel_rel_err"])
+                worst["mel_corr"] = min(worst["mel_corr"], got["mel_corr"])
+                worst["max_abs"] = max(worst["max_abs"], float(np.abs(m - ref).max()))
+            check.require(all(np.isfinite(w).all() for w in wavs), f"{label}: a wav is not finite")
+            log(f"[dp serve {label}] card={name_limit} devices {[str(d) for d in devices]}: "
+                f"{len(plan)} chunks of {[len(i) for _, _, i in plan]} rows, padded to "
+                f"{n_dev}; launches {launches}, expected "
+                f"{ {k: v for k, v in want.items() if v} } ({denoiser} {n_dev} x phase 15's), "
+                f"every other kernel 0; every segment against the one-device run, seed 0: "
+                f"worst mel rel err {worst['mel_rel_err']:.6g}, corr {worst['mel_corr']:.8f}, "
+                f"largest difference {worst['max_abs']:.6g} (tolerance: "
+                f"{check.tolerance_text()}); {seconds:.3f}s")
+    timing = load_ds(ROOT / SERVE_TIMING)
+    audio = sum(_silent(lynx_runner.preprocess_input, p)["mel2ph"].shape[1] for p in timing) \
+        * lynx_runner.cfg["hop_size"] / lynx_runner.cfg["audio_sample_rate"]
+    rates = {1: [], 2: []}
+    for n in (2, 1, 2, 2, 1):  # a warm-up of two replicas, then in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _silent(lynx_runner.run_inference, timing, out_dir=work / "timing", title="timing",
+                seed=0, data_parallel=True, devices=shared[:n])
+        torch.cuda.synchronize()
+        rates[n].append(audio / (time.perf_counter() - t0))
+    log(f"[dp serve timing] card={name_limit} {SERVE_TIMING} ({audio:.2f} s of audio) through "
+        f"run_inference(data_parallel=True) on cuda:0 with one replica: audio_s_per_s "
+        f"{' '.join(f'{r:.4f}' for r in rates[1])}; with [cuda:0, cuda:0]: "
+        f"{' '.join(f'{r:.4f}' for r in rates[2][1:])} (warm-up {rates[2][0]:.4f}); both "
+        f"slices run on the one card, so this is no speed claim")
+    log(f"[done 18c] {time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
 def run_bench() -> None:
     """Phase 11: the bench end to end, ``python -m xiaoicesing_io_tpu_torch.bench
     --runs 1`` (every cell of ``BENCHMARK.json`` and the WaveNet margin line)
@@ -3692,6 +4187,10 @@ def main(argv) -> int:
                 f"{u['stack']} B, spill stores {u['spill_stores']} B, spill loads "
                 f"{u['spill_loads']} B")
 
+    if "--dp-only" in argv:
+        run_dp_only(name_limit)
+        log(f"[done] phase 18 only, {time.perf_counter() - t_start:.1f}s")
+        return 0
     k1 = check_k1()
     k2 = check_k2()
     k4 = check_k4()
@@ -3713,6 +4212,7 @@ def main(argv) -> int:
             "wavenet_ddpm", "wavenet_ddpm_b4_t2048", work / "wavenet", name_limit,
             {"K4": k4, "K2": k2, "K6": k6})
         serving = run_serving(lynx_runner, wavenet_runner, work / "serve", name_limit)
+        dp_serving = run_dp_serving(lynx_runner, wavenet_runner, work / "dp_serve", name_limit)
         lynx_cfg = lynx_runner.cfg
         del wavenet_runner
         torch.cuda.empty_cache()
@@ -3724,6 +4224,8 @@ def main(argv) -> int:
         evaluation = run_evaluation(lynx_cfg, variance_cfg, work / "eval", name_limit, per_call)
         training = run_training(lynx_cfg, work / "train", name_limit, per_call)
         bridge = run_bridge(work / "train", work / "bridge", name_limit)
+        dp_training = run_dp_training(lynx_cfg, work / "train", work / "dp_train", name_limit,
+                                      per_call)
         binarization = run_binarization(lynx_cfg, work / "binarize", name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3782,6 +4284,8 @@ def main(argv) -> int:
         entry["binarize_path_launches"] = binarization[entry["name"]]
         entry["serve_path_launches"] = serving[entry["name"]]
         entry["export_check_launches"] = export[entry["name"]]
+        entry["dp_serve_launches"] = dp_serving[entry["name"]]
+        entry["dp_train_launches"] = dp_training[entry["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -213,7 +213,7 @@ def test_sampler_batches_match_jax(case):
         assert [list(b) for b in p] == [list(b) for b in j]
     with pytest.raises(RuntimeError):
         P(Sizes([]), 1000, 8).set_epoch(0)
-    assert list(P(Sizes([]), 1000, 8, allow_empty=True)) == []
+    assert list(P(Sizes([]), 1000, 8, disallow_empty_batch=False)) == []
 
 
 def test_fixed_batch_rows_match_jax():

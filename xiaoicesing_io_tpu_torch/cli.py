@@ -6,6 +6,7 @@
     python -m xiaoicesing_io_tpu_torch.cli vocode song.mel.npz (--exp my_exp | --config cfg.yaml)
     python -m xiaoicesing_io_tpu_torch.cli eval --exp my_exp [--dataset valid] [--pesq] [--json out.json]
     python -m xiaoicesing_io_tpu_torch.cli train --config cfg.yaml --exp_name my_exp [--hparams k=v,...]
+        [--coordinator host:port --num_processes N --process_id I]
     python -m xiaoicesing_io_tpu_torch.cli binarize --config cfg.yaml [--hparams k=v,...]
     python -m xiaoicesing_io_tpu_torch.cli drop_spk my_exp --spk name [--fill zeros] [--out PATH]
     python -m xiaoicesing_io_tpu_torch.cli export acoustic|variance --exp my_exp [--out DIR] [--freeze_* ...]
@@ -32,8 +33,11 @@ binarized ``valid`` (or ``train``) set: mel MAE and MCD of an acoustic model
 variance model.  ``train`` trains the acoustic or variance model that the
 config's ``task_cls`` names on its ``binary_data_dir``, writing the merged
 config and reference-format checkpoints into ``<work_dir>/<exp_name>``;
-``--reset`` ignores a config saved there.  ``binarize`` turns the raw sets
-of ``raw_data_dir`` into ``binary_data_dir``'s ``{train,valid}.{data,meta}``,
+``--reset`` ignores a config saved there; with ``--num_processes N`` (> 1)
+each of N processes, started with its ``--process_id`` and the same
+``--coordinator``, trains data-parallel on its own card (``nccl``; ``gloo``
+with ``--device cpu``) and rank 0 writes the work dir.  ``binarize`` turns
+the raw sets of ``raw_data_dir`` into ``binary_data_dir``'s ``{train,valid}.{data,meta}``,
 ``spk_map.json`` and ``dictionary.txt`` with the binarizer whose class name
 ``binarizer_cls`` ends in (``AcousticBinarizer`` or ``VarianceBinarizer``,
 whatever module path precedes it: nothing is imported from that path).
@@ -259,10 +263,12 @@ def eval_cmd(args) -> None:
 
 def train(args) -> None:
     from .config import load_config
+    from .parallel.mesh import init_distributed, rank
     from .training.tasks import build_trainer_from_config
 
+    init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
     cfg = load_config(args.config, exp_name=args.exp_name, work_dir_root=args.work_dir,
-                      overrides=args.hparams, reset=args.reset, save=True)
+                      overrides=args.hparams, reset=args.reset, save=rank() == 0)
     build_trainer_from_config(cfg, device=args.device).fit()
 
 
@@ -511,7 +517,14 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--work_dir", default="checkpoints", help="root of the experiments")
     tr.add_argument("--hparams", default="", help="key=value overrides, comma separated")
     tr.add_argument("--reset", action="store_true", help="ignore the saved work-dir config")
-    tr.add_argument("--device", default=None, help="torch device (default: cuda)")
+    tr.add_argument("--device", default=None,
+                    help="torch device (default: this process's card)")
+    tr.add_argument("--coordinator", default=None,
+                    help="several processes: the rendezvous host:port")
+    tr.add_argument("--num_processes", type=int, default=None,
+                    help="several processes: how many (one a card)")
+    tr.add_argument("--process_id", type=int, default=None,
+                    help="several processes: this one's rank, 0 to num_processes - 1")
     tr.set_defaults(func=train)
 
     bi = sub.add_parser("binarize", help="Binarize the raw sets a config names")

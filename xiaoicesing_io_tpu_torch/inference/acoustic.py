@@ -317,9 +317,11 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
 
     def run_inference(self, params: List[dict], out_dir, title: str, num_runs: int = 1,
                       seed: int = -1, save_mel: bool = False,
-                      data_parallel: bool = False) -> List[Path]:
+                      data_parallel: bool = False, devices=None) -> List[Path]:
         """``data_parallel=True`` synthesises the segments in bucket batches
-        and vocodes them in groups of equal length (serving mode,
+        over ``devices`` (default: every visible card when the runner is on
+        one, else the runner's device) and vocodes them in groups of equal
+        length on the runner's device (serving mode,
         ``inference/serving.py``): per-segment seeds give way to one noise
         stream a chunk and a vocoder group."""
         batches = [self.preprocess_input(p, idx=i) for i, p in enumerate(params)]
@@ -331,7 +333,7 @@ class DiffSingerAcousticInfer(BaseSVSInfer):
         if data_parallel:
             from .serving import DataParallelSynthesizer
 
-            dp = DataParallelSynthesizer(self)
+            dp = DataParallelSynthesizer(self, devices)
         paths = []
         for run in range(num_runs):
             run_seed = seed if seed >= 0 else fresh_seed()

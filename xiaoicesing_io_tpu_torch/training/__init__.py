@@ -1,1 +1,2 @@
-"""Model assembly (training itself is not ported yet)."""
+"""Training: the tasks, the trainer (on one card, or one card a rank), the
+losses, the optimizer and the checkpoints."""

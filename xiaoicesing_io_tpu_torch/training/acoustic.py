@@ -8,11 +8,18 @@
 masked by ``mel2ph > 0``.  :func:`make_acoustic_train_step` differentiates
 them with autograd, under ``torch.autocast`` in bf16 where the config's
 ``precision`` says bf16 (the parameters and optimizer stay f32).
+
+A rank of a data-parallel group passes ``shard=(rank, world)``: its batch
+is then one of ``world`` equal slices of the global batch, and each draw
+(``t``, noise) is made for the whole global batch from the generator, which
+every rank seeds alike, and sliced to this rank's rows
+(:func:`rank_rows`).  A W-rank update so equals one process's update on the
+ranks' batches concatenated in rank order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -59,17 +66,30 @@ def sample_t(core, b: int, generator: Optional[torch.Generator], device) -> torc
                                                             device=device)
 
 
+def rank_rows(draw: Callable[[int], torch.Tensor], b: int,
+              shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``draw(b)``; with ``shard=(rank, world)``, rows ``rank * b`` to
+    ``(rank + 1) * b`` of ``draw(world * b)``, the global batch's draw."""
+    if shard is None:
+        return draw(b)
+    r, w = shard
+    return draw(w * b)[r * b:(r + 1) * b]
+
+
 def diffusion_branch(core, cfg, denoise, gt_norm: torch.Tensor, non_padding: torch.Tensor,
                      generator: Optional[torch.Generator], t=None, noise=None,
-                     log_norm_default: bool = False) -> torch.Tensor:
+                     log_norm_default: bool = False,
+                     shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One diffusion loss: ``t`` and ``noise`` (drawn from ``generator``
-    unless given), the noised input, ``denoise(x_t, t_in)`` and the DDPM
-    noise loss or the rectified-flow velocity loss."""
+    unless given, for the global batch under ``shard``), the noised input,
+    ``denoise(x_t, t_in)`` and the DDPM noise loss or the rectified-flow
+    velocity loss."""
     b, dev = gt_norm.shape[0], gt_norm.device
     if noise is None:
-        noise = torch.randn(gt_norm.shape, generator=generator, device=dev)
+        noise = rank_rows(lambda n: torch.randn((n, *gt_norm.shape[1:]), generator=generator,
+                                                device=dev), b, shard)
     if t is None:
-        t = sample_t(core, b, generator, dev)
+        t = rank_rows(lambda n: sample_t(core, n, generator, dev), b, shard)
     loss_type = cfg.get("main_loss_type", "l2")
     if isinstance(core, GaussianDiffusion):
         x_t = core.q_sample(gt_norm, t.long(), noise)
@@ -85,10 +105,11 @@ def diffusion_branch(core, cfg, denoise, gt_norm: torch.Tensor, non_padding: tor
 def acoustic_losses(model: AcousticModel, core, normalizer: SpecNormalizer, cfg,
                     batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                     *, t: Optional[torch.Tensor] = None,
-                    noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                    noise: Optional[torch.Tensor] = None,
+                    shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """One forward pass -> ``{"aux_mel_loss", "mel_loss"}`` (as configured).
-    ``t`` and ``noise`` are drawn from ``generator`` unless given; dropout
-    follows the model's mode."""
+    ``t`` and ``noise`` are drawn from ``generator`` unless given (for the
+    global batch under ``shard``); dropout follows the model's mode."""
     use_shallow = cfg.get("use_shallow_diffusion", False)
     shallow = cfg.get("shallow_diffusion_args", {})
     variances = {v: batch[v] for v in required_variances(cfg)}
@@ -107,7 +128,7 @@ def acoustic_losses(model: AcousticModel, core, normalizer: SpecNormalizer, cfg,
     if not use_shallow or shallow.get("train_diffusion", True):
         out["mel_loss"] = diffusion_branch(
             core, cfg, lambda x, tt: model.denoise(x, tt, cond), norm_gt, non_padding,
-            generator, t=t, noise=noise)
+            generator, t=t, noise=noise, shard=shard)
     return out
 
 

@@ -7,6 +7,11 @@
 * :func:`aux_mel_loss`: l1 on the normalised aux mel;
 * :func:`duration_loss`: phone, word and sentence terms in the log domain
   (mse or huber), word durations summed by ``ph2word``.
+
+Every denominator is a count of elements of the padded batch, a shape,
+except the word term's, ``rows * max(ph2word)``; a rank of a data-parallel
+group passes the maximum over every rank's batch (``word_max``), so that the
+mean of the ranks' losses is the global batch's loss.
 """
 
 from __future__ import annotations
@@ -67,10 +72,12 @@ def aux_mel_loss(aux_out: torch.Tensor, norm_gt: torch.Tensor,
 
 def duration_loss(dur_pred: torch.Tensor, dur_gt: torch.Tensor, ph2word: torch.Tensor,
                   offset: float = 1.0, loss_type: str = "mse", lambda_pdur: float = 0.3,
-                  lambda_wdur: float = 1.0, lambda_sdur: float = 3.0) -> torch.Tensor:
+                  lambda_wdur: float = 1.0, lambda_sdur: float = 3.0,
+                  word_max: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dur_pred, dur_gt ``[B, T_ph]``; ph2word 1-based (0: padding).  The
     word term is a plain mean over ``[B, max(ph2word)]``, as the reference
-    takes it."""
+    takes it; ``word_max`` replaces ``max(ph2word)`` (a data-parallel rank
+    passes the global batch's)."""
     base = {"mse": lambda p, g: (p - g) ** 2, "huber": _huber}[loss_type]
 
     def log(d):
@@ -85,7 +92,7 @@ def duration_loss(dur_pred: torch.Tensor, dur_gt: torch.Tensor, ph2word: torch.T
         return d.new_zeros(b, n + 1).scatter_add(1, ph2word.long(), d)[:, 1:]
 
     wdur_elems = base(log(words(dur_pred)), log(words(dur_gt)))
-    wdur_denom = b * ph2word.max().clamp(min=1)
+    wdur_denom = b * (ph2word.max() if word_max is None else word_max).clamp(min=1)
     wdur = lambda_wdur * wdur_elems.sum() / wdur_denom.to(wdur_elems.dtype)
     sdur = lambda_sdur * base(log(dur_pred.sum(1)), log(dur_gt.sum(1))).mean()
     return pdur + wdur + sdur

@@ -3,8 +3,9 @@
 
 The model is built from the config on the CPU with torch's initialisers
 seeded by ``seed`` (default 0), optionally finetuned from a checkpoint and
-partly frozen, then moved to the trainer's device: CUDA unless the caller
-passes another.
+partly frozen, then moved to the trainer's device: this process's card
+(``parallel/mesh.local_device``) unless the caller passes another device.
+In a group of more than one rank, rank 0 alone writes the work dir.
 
 The validation extras run on the trainer's device and propagate every
 error, where the JAX package's trainer prints and swallows them:
@@ -32,7 +33,8 @@ from pathlib import Path
 import torch
 
 from ..data.dataset import AcousticDataset, VarianceDataset
-from ..utils import generator_from_seed, resolve_device
+from ..parallel.mesh import local_device, rank
+from ..utils import generator_from_seed
 from ..utils.phonemes import PhonemeDictionary, locate_dictionary
 from ..utils.text_encoder import TokenTextEncoder
 from .acoustic import (
@@ -81,8 +83,9 @@ def _train_state(model, cfg, category: str, device) -> TrainState:
 
 
 def build_acoustic_trainer(cfg, device=None, writer=_DEFAULT_WRITER) -> Trainer:
-    device = resolve_device(device)
-    _prepare_work_dir(cfg)
+    device = local_device(device)
+    if rank() == 0:
+        _prepare_work_dir(cfg)
     encoder = build_phone_encoder(cfg)
     model, core, normalizer = _seeded(cfg, lambda: build_acoustic(cfg, encoder.vocab_size))
     state = _train_state(model, cfg, "acoustic", device)
@@ -151,8 +154,9 @@ def build_variance_trainer(cfg, device=None, writer=_DEFAULT_WRITER) -> Trainer:
     from ..inference.variance import build_variance_cores
     from ..models.toplevel import VarianceModel, build_variance_normalizers
 
-    device = resolve_device(device)
-    _prepare_work_dir(cfg)
+    device = local_device(device)
+    if rank() == 0:
+        _prepare_work_dir(cfg)
     encoder = build_phone_encoder(cfg)
     model = _seeded(cfg, lambda: VarianceModel.from_config(cfg, encoder.vocab_size))
     core, normalizers = build_variance_cores(cfg), build_variance_normalizers(cfg)

@@ -11,6 +11,13 @@ by ``norm + 1e-6`` instead).  With ``accumulate_grad_batches`` k > 1 an
 update takes the mean of k micro-batch gradients, then the clip, as
 ``optax.MultiSteps`` does.  Frozen parameters (``requires_grad`` off) are
 in neither the optimizer nor the global norm.
+
+In a process group of more than one rank (``parallel/mesh.py``) each
+update first averages the accumulated gradients over the ranks, one
+collective an update, then clips the mean: the global batch's gradient,
+as the JAX package's sharded step computes it.  Every rank holds every
+gradient, a zero where its batch reached none, so that all ranks apply the
+same update.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import List
 
 import torch
 
+from ..parallel.mesh import all_reduce_mean_, broadcast_
 from .schedules import Schedule, build_lr_schedule
 
 
@@ -71,11 +79,12 @@ class TrainState:
         return True
 
     def apply_gradients(self) -> None:
-        """Clip the accumulated gradients, set the learning rate of update
-        ``step`` and step the optimizer."""
+        """Average the accumulated gradients over the ranks, clip them, set
+        the learning rate of update ``step`` and step the optimizer."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         for p, g in zip(self.params, grads):
             p.grad = g
+        all_reduce_mean_(grads)
         if self.clip:
             clip_by_global_norm(grads, float(self.clip))
         lr = float(self.schedule(self.step))
@@ -84,3 +93,12 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+
+    def broadcast_from(self, src: int = 0) -> None:
+        """Make this rank's model and AdamW state rank ``src``'s (after a
+        restore, so that every rank starts from the same state)."""
+        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        for p in self.params:
+            state = self.optimizer.state.get(p, {})
+            tensors += [state[k] for k in sorted(state) if torch.is_tensor(state[k])]
+        broadcast_(tensors, src)

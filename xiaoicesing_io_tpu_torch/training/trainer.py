@@ -1,5 +1,6 @@
-"""The single-card trainer (counterpart of the JAX package's
-``training/trainer.py:Trainer``).
+"""The trainer (counterpart of the JAX package's
+``training/trainer.py:Trainer``), on one card or on one card a process of a
+``torch.distributed`` group (``parallel/mesh.py``).
 
 * ``fit``: resume from the latest checkpoint with its epoch, a sanity
   validation, per-epoch frame-budget batches (:mod:`..data.sampler`),
@@ -16,15 +17,38 @@
 * Batches are collated, narrowed and copied on a small thread pool ahead
   of the step; a collate error propagates.
 * Per-epoch batches from :class:`~..data.sampler.BatchSampler`, the JAX
-  sampler at one replica.
+  sampler, at this process's rank.
 * SIGTERM / SIGINT: checkpoint at the next update, then return.
 * ``profile_trace_steps``: a ``torch.profiler`` trace of the first N
   updates into ``<work_dir>/trace``.
 * ``max_host_rss_mb`` and ``stall_restart_minutes``: checkpoint (the RSS
   watchdog) and re-exec the process through this package's CLI.
 
-One card: the JAX trainer's mesh, multi-process shape agreement and
-distributed initialisation are not ported.
+With W > 1 ranks (the JAX trainer's multi-process parts, each at its
+counterpart):
+
+* each rank trains on its sampler batch, padded to the shapes that every
+  rank computes alike from ``batches_at_step`` (:meth:`Trainer.
+  _global_shape_targets`), with the same row count; the global batch is one
+  sampler batch a card, the ranks' batches concatenated in rank order;
+* the draws (``t``, noise, retake masks) are the global batch's, from one
+  generator seeded alike on every rank, each rank keeping its rows
+  (``shard=(rank, W)`` of the train step); dropout is seeded from ``(seed,
+  rank)``; the gradients are averaged over the ranks before the clip
+  (``TrainState.apply_gradients``), so a W-rank update equals one process's
+  update on the concatenated batch;
+* after a restore every rank takes rank 0's parameters and AdamW state;
+* ``compact_feed`` is off: its f16 narrowing plan depends on values, so
+  ranks could narrow a field differently;
+* the losses are logged by rank 0 as means over the ranks, reduced at log
+  steps only; the RSS and signal stop flags are combined at log steps, so
+  every rank stops at the same step;
+* validation runs the whole valid set on every rank, with no collective;
+  its extras, the stall watchdog and the re-exec run only in a process of
+  its own (a rank cannot restart alone: it checkpoints and returns, for the
+  launcher to start every rank again);
+* rank 0 writes the checkpoints, the logs and the profiler trace, and the
+  ranks meet at a barrier after each save.
 """
 
 from __future__ import annotations
@@ -44,6 +68,8 @@ import numpy as np
 import torch
 
 from ..data.sampler import BatchSampler
+from ..parallel.mesh import all_reduce_mean_, any_flag, barrier, broadcast_, rank, world_size
+from ..utils import seed_for
 from .checkpoint import CheckpointManager
 from .train_state import TrainState
 
@@ -165,7 +191,9 @@ class Trainer:
         self.on_validation_extras = on_validation_extras
         self.train_step = train_step
         self.val_losses_fn = val_losses_fn
-        self.compact_feed = bool(cfg.get("compact_feed", True))
+        self.world = world_size()
+        self.rank = rank()
+        self.compact_feed = bool(cfg.get("compact_feed", True)) and self.world == 1
         self._narrow_plan: Dict[str, np.dtype] = {}
         self._feed_stats = {"collate_s": 0.0, "dispatch_s": 0.0, "starve_s": 0.0}
         work_dir = Path(cfg["work_dir"])
@@ -173,6 +201,8 @@ class Trainer:
             work_dir, category=category, num_ckpt_keep=cfg.get("num_ckpt_keep", 5),
             permanent_ckpt_start=cfg.get("permanent_ckpt_start", 0),
             permanent_ckpt_interval=cfg.get("permanent_ckpt_interval", -1))
+        if self.rank != 0:
+            writer = None
         self.writer = default_writer(work_dir) if writer is _DEFAULT_WRITER else writer
         self.accum = state.accum
         self.max_updates = cfg.get("max_updates", 160000)
@@ -186,19 +216,50 @@ class Trainer:
 
     # -- batches ---------------------------------------------------------------
 
-    def _collate_train(self, indices):
+    def _global_shape_targets(self, sampler: BatchSampler, step_idx: int):
+        """The shapes of train step ``step_idx`` that every rank pads to:
+        the most items, frames, tokens and notes over every rank's batch of
+        that step, from the sampler and the set's ``.meta`` lengths, with no
+        communication.  None at one rank."""
+        if self.world == 1:
+            return None
+        ds = self.train_dataset
+        all_b = sampler.batches_at_step(step_idx)
+        items = [i for b in all_b for i in b]
+        targets = {"items": max((len(b) for b in all_b), default=0),
+                   "frames": max((ds.num_frames(i) for i in items), default=0)}
+        meta = getattr(ds, "metadata", {})
+        if "tokens" in meta:
+            targets["tokens"] = max(ds.attr_len("tokens", i) for i in items)
+        if "note_midi" in meta:
+            targets["notes"] = max(ds.attr_len("note_midi", i) for i in items)
+        return targets
+
+    def _collate_train(self, indices, shape_targets=None):
         """A train batch whose row count is a function of its padded length
-        (:func:`fixed_batch_rows`); ``fixed_shape_batches: false`` collates
-        the sampler's items alone."""
-        if not self.cfg.get("fixed_shape_batches", True):
+        (:func:`fixed_batch_rows`), padded to ``shape_targets`` where given
+        (more than one rank); ``fixed_shape_batches: false`` collates the
+        sampler's items alone at one rank."""
+        if not self.cfg.get("fixed_shape_batches", True) and shape_targets is None:
             return self.collate(indices)
         from ..data.dataset import FRAME_BUCKET, _round_up
 
         ds = self.train_dataset
-        t_pad = _round_up(int(max(ds.num_frames(i) for i in indices)), FRAME_BUCKET)
-        rows = fixed_batch_rows(len(indices), t_pad, int(self.cfg.get("max_batch_frames", 50000)),
+        frames = max(ds.num_frames(i) for i in indices)
+        n_items = len(indices)
+        extra = {}
+        if shape_targets is not None:
+            frames = max(frames, shape_targets["frames"])
+            n_items = max(n_items, shape_targets["items"])
+            if "tokens" in shape_targets:
+                extra["pad_tokens_to"] = shape_targets["tokens"]
+            if "notes" in shape_targets:
+                extra["pad_notes_to"] = shape_targets["notes"]
+            extra["pad_frames_to"] = frames
+        t_pad = _round_up(int(frames), FRAME_BUCKET)
+        rows = fixed_batch_rows(n_items, t_pad, int(self.cfg.get("max_batch_frames", 50000)),
                                 int(self.cfg.get("max_batch_size", 64)))
-        return self.collate(indices, pad_batch_to=rows)
+        return self.collate(indices, pad_batch_to=rows, **extra)
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         on_card = self.device.type == "cuda"
@@ -218,9 +279,9 @@ class Trainer:
         workers = max(1, int(self.cfg.get("dataloader_num_threads", 2)))
         stats = self._feed_stats
 
-        def produce(indices):
+        def produce(indices, shape_targets):
             t0 = time.perf_counter()
-            batch = self._collate_train(indices)
+            batch = self._collate_train(indices, shape_targets)
             real_frames = int((batch["mel2ph"] > 0).sum()) if "mel2ph" in batch else 0
             t1 = time.perf_counter()
             if self.compact_feed:
@@ -240,8 +301,9 @@ class Trainer:
         ex = ThreadPoolExecutor(max_workers=workers)
         pending: deque = deque()
         try:
-            for indices in sampler:
-                pending.append(ex.submit(produce, indices))
+            for step_idx, indices in enumerate(sampler):
+                pending.append(ex.submit(produce, indices,
+                                         self._global_shape_targets(sampler, step_idx)))
                 if len(pending) >= window:
                     yield take(pending.popleft())
             while pending:
@@ -255,6 +317,7 @@ class Trainer:
         s = BatchSampler(
             self.train_dataset, max_batch_frames=self.cfg.get("max_batch_frames", 50000),
             max_batch_size=self.cfg.get("max_batch_size", 64),
+            num_replicas=self.world, rank=self.rank,
             required_batch_count_multiple=self.cfg.get("accumulate_grad_batches", 1),
             frame_count_grid=self.cfg.get("sampler_frame_count_grid", 6),
             shuffle_sample=True, sort_by_similar_size=self.cfg.get("sort_by_len", True),
@@ -281,13 +344,39 @@ class Trainer:
 
     # -- loops -----------------------------------------------------------------
 
-    def fit(self) -> None:
+    def _say(self, msg: str) -> None:
+        """Print on rank 0 only."""
+        if self.rank == 0:
+            print(msg)
+
+    def _save(self, step: int, epoch: int) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.rank == 0:
+            self.ckpt.save(self.state, step, epoch=epoch)
+        barrier()
+
+    def _restore(self):
+        """The latest checkpoint's ``(step, epoch)``; with more than one
+        rank, rank 0's state, step and epoch on every rank."""
         meta = self.ckpt.restore_latest(self.state)
         step, epoch = meta["step"], meta["epoch"]
+        if self.world > 1:
+            self.state.broadcast_from(0)
+            counts = torch.tensor([step, epoch], dtype=torch.int64, device=self.device)
+            broadcast_([counts], 0)
+            step, epoch = (int(v) for v in counts.tolist())
+            self.state.step, self.state.micro = step, step * self.state.accum
+            # dropout: each rank its own stream; the draws' generator is shared
+            torch.manual_seed(seed_for(int(self.cfg.get("seed", 0)), self.rank, self.device.type))
+        return step, epoch
+
+    def fit(self) -> None:
+        step, epoch = self._restore()
         if step > 0:
-            print(f"| resumed from step {step} (epoch {epoch})")
+            self._say(f"| resumed from step {step} (epoch {epoch})")
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(self.cfg.get("seed", 0)))
+        shard = {"shard": (self.rank, self.world)} if self.world > 1 else {}
         stop_requested = {"flag": False}
 
         def request_stop(signum, frame):
@@ -303,7 +392,7 @@ class Trainer:
             except ValueError:  # not the main thread
                 pass
         if step == 0 and self.cfg.get("num_sanity_val_steps", 1) > 0:
-            print("| running sanity validation")
+            self._say("| running sanity validation")
             self.validate(0, sanity=True)
         t_log = time.time()
         frames_since_log = 0
@@ -314,14 +403,14 @@ class Trainer:
         rss_limit = int(rss_limit or 0)
         stall_min = float(self.cfg.get("stall_restart_minutes", 0) or 0)
         self._heartbeat = time.time()
-        if stall_min > 0:
+        if stall_min > 0 and self.world == 1:
             threading.Thread(target=_stall_guard_loop, args=(self, stall_min), daemon=True,
                              name="stall-watchdog").start()
         updates_this_process = 0
         restart_requested = False
         trace_steps = int(self.cfg.get("profile_trace_steps", 0) or 0)
         prof = None
-        if trace_steps > 0:
+        if trace_steps > 0 and self.rank == 0:
             prof = self._start_trace(trace_steps)
         trace_stop_at = step + trace_steps if prof is not None else -1
         while step < self.max_updates:
@@ -330,7 +419,7 @@ class Trainer:
                     break
                 frames_since_log += real_frames
                 batch = widen_batch(batch)
-                updated, metrics = self.train_step(self.state, batch, generator)
+                updated, metrics = self.train_step(self.state, batch, generator, **shard)
                 self._heartbeat = time.time()
                 if not updated:
                     continue  # mid-accumulation
@@ -339,22 +428,33 @@ class Trainer:
                 if step == trace_stop_at:
                     self._stop_trace(prof)
                     prof, trace_stop_at = None, -1
-                if step % self.log_interval == 0:
+                log_step = step % self.log_interval == 0
+                if log_step:
                     self._log(step, metrics, time.time() - t_log, frames_since_log)
                     t_log, frames_since_log = time.time(), 0
                 updates_this_process += 1
                 if step % self.val_check_interval == 0:
                     self.validate(step)
                     last_validated = step
-                    self.ckpt.save(self.state, step, epoch=epoch)
-                if (rss_limit and step < self.max_updates and step % self.log_interval == 0
-                        and updates_this_process >= 2 * self.log_interval
-                        and _host_rss_mb() > rss_limit):
-                    print(f"| host RSS {_host_rss_mb()} MB (limit {rss_limit} MB): "
+                    self._save(step, epoch)
+                # the stop decisions: with more than one rank, combined at log
+                # steps, so that every rank breaks at the same step
+                rss_over = (rss_limit and step < self.max_updates and log_step
+                            and updates_this_process >= 2 * self.log_interval
+                            and _host_rss_mb() > rss_limit)
+                stop = stop_requested["flag"]
+                if self.world > 1:
+                    if not log_step:
+                        continue
+                    rss_over, stop = any_flag([rss_over, stop], self.device)
+                    stop_requested["flag"] = stop
+                if rss_over:
+                    print(f"| host RSS {_host_rss_mb()} MB (limit {rss_limit} MB"
+                          f"{', over on a rank' if self.world > 1 else ''}): "
                           "checkpointing and restarting")
                     restart_requested = True
                     break
-                if stop_requested["flag"]:
+                if stop:
                     break
             if stop_requested["flag"] or restart_requested:
                 break
@@ -365,18 +465,30 @@ class Trainer:
             self._stop_trace(prof)
         if stop_requested["flag"] or restart_requested:
             if last_validated != step:
-                self.ckpt.save(self.state, step, epoch=epoch)
-            if restart_requested:
+                self._save(step, epoch)
+            if restart_requested and self.world == 1:
                 self._exec_restart(step)
-            print(f"| training preempted at step {step} (checkpoint saved)")
+            self._say(f"| training {'stopped for a restart' if restart_requested else 'preempted'}"
+                      f" at step {step} (checkpoint saved)")
             return
         if last_validated != step:
             self.validate(step)
-            self.ckpt.save(self.state, step, epoch=epoch)
-        print(f"| training finished at step {step}")
+            self._save(step, epoch)
+        self._say(f"| training finished at step {step}")
 
     def _log(self, step: int, metrics: Dict[str, torch.Tensor], dt: float,
              frames: int) -> None:
+        """The log line and scalars of update ``step``; with more than one
+        rank (every rank calls it), the losses' means over the ranks and
+        the frames of all of them, printed by rank 0."""
+        if self.world > 1:
+            names = list(metrics)
+            values = torch.stack([metrics[k].detach().double() for k in names]
+                                 + [torch.tensor(float(frames), dtype=torch.float64,
+                                                 device=self.device)])
+            all_reduce_mean_([values])
+            metrics = dict(zip(names, values[:-1]))
+            frames = float(values[-1]) * self.world
         metrics = {k: float(v) for k, v in metrics.items()}
         lr = float(self.state.schedule(step))
         sps = self.log_interval * self.accum / max(dt, 1e-9)
@@ -389,6 +501,8 @@ class Trainer:
                 f" starve {fs['starve_s'] / n_it * 1e3:.1f} ms/it")
         for k in fs:
             fs[k] = 0.0
+        if self.rank != 0:
+            return
         print(f"| step {step} | " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
               + f" | lr={lr:.2e} | {sps:.2f} it/s | {audio_sps:.1f} audio-s/s" + feed)
         if self.writer:
@@ -420,7 +534,10 @@ class Trainer:
         """Replace this process with a fresh ``python -m
         xiaoicesing_io_tpu_torch.cli`` of the same arguments, which resumes
         from the last checkpoint.  ``save=False`` (the stall watchdog) skips
-        the flush."""
+        the flush.  A no-op with more than one rank: a rank cannot restart
+        alone."""
+        if self.world > 1:
+            return
         if save and self.writer:
             self.writer.flush()
         pkg_root = str(Path(__file__).resolve().parents[2])
@@ -434,13 +551,15 @@ class Trainer:
     def validate(self, step: int, sanity: bool = False) -> Dict[str, float]:
         """Losses over the valid set in batches of ``max_val_batch_size``
         (and ``max_val_batch_frames``), averaged weighted by batch size;
-        then the extras (not at the sanity validation)."""
+        then the extras (not at the sanity validation).  Every rank runs the
+        whole set alike, with no collective; the extras run only at one
+        rank."""
         from .variance import batch_tensors
 
         val_sampler = BatchSampler(
             self.valid_dataset, max_batch_frames=self.cfg.get("max_val_batch_frames", 60000),
             max_batch_size=self.cfg.get("max_val_batch_size", 1), shuffle_sample=False,
-            sort_by_similar_size=False, allow_empty=True)
+            sort_by_similar_size=False, disallow_empty_batch=False, pad_batch_assignment=False)
         val_sampler.set_epoch(0)
         batches = list(val_sampler)
         if sanity:
@@ -462,13 +581,13 @@ class Trainer:
                 weights += len(indices)
             losses = {k: v / max(weights, 1e-9) for k, v in totals.items()}
             total = sum(losses.values())
-            print(f"| validation @ step {step}: total={total:.4f} "
-                  + " ".join(f"{k}={v:.4f}" for k, v in losses.items()))
+            self._say(f"| validation @ step {step}: total={total:.4f} "
+                      + " ".join(f"{k}={v:.4f}" for k, v in losses.items()))
             if self.writer:
                 self.writer.add_scalar("validation/total_loss", total, step)
                 for k, v in losses.items():
                     self.writer.add_scalar(f"validation/{k}", v, step)
-            if self.on_validation_extras is not None and not sanity:
+            if self.on_validation_extras is not None and not sanity and self.world == 1:
                 self.on_validation_extras(self, step)
         finally:
             model.train(was_training)

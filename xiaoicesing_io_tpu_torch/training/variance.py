@@ -23,7 +23,8 @@ import torch
 from ..inference.variance import BATCH_TYPES, head_denoiser
 from ..models.diffusion.core import GaussianDiffusion
 from . import losses
-from .acoustic import diffusion_branch, make_train_step
+from ..parallel.mesh import all_reduce_max
+from .acoustic import diffusion_branch, make_train_step, rank_rows
 
 
 def batch_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -106,15 +107,19 @@ def sample_variance_inference(
 
 def random_retake_masks(b: int, t: int, generator: Optional[torch.Generator] = None,
                         device=None, *, full: Optional[torch.Tensor] = None,
-                        ends: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        ends: Optional[torch.Tensor] = None,
+                        shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``[b, t]`` retake masks: a row is retaken whole where its draw
     ``full`` (``[b, 1]`` in ``[0, 4)``) is 0, else on ``[lo, hi)`` of its two
     sorted draws ``ends`` (``[b, 2]`` in ``[0, t]``).  The draws come from
-    ``generator`` unless given."""
+    ``generator`` unless given (for the global batch under ``shard``,
+    :func:`~.acoustic.rank_rows`)."""
     if full is None:
-        full = torch.randint(0, 4, (b, 1), generator=generator, device=device)
+        full = rank_rows(lambda n: torch.randint(0, 4, (n, 1), generator=generator,
+                                                 device=device), b, shard)
     if ends is None:
-        ends = torch.randint(0, t + 1, (b, 2), generator=generator, device=device)
+        ends = rank_rows(lambda n: torch.randint(0, t + 1, (n, 2), generator=generator,
+                                                 device=device), b, shard)
     ends = ends.sort(dim=1).values
     idx = torch.arange(t, device=ends.device)[None, :]
     return (full == 0) | ((idx >= ends[:, :1]) & (idx < ends[:, 1:]))
@@ -125,12 +130,16 @@ def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor
                     retakes: Optional[Dict[str, torch.Tensor]] = None,
                     t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                     var_t: Optional[torch.Tensor] = None,
-                    var_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                    var_noise: Optional[torch.Tensor] = None,
+                    shard: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """One forward pass -> ``{"dur_loss", "pitch_loss", "var_loss"}`` (as
     configured).  ``retakes`` (``pitch`` and each predicted curve, bool
     ``[B, T]``), the pitch head's ``t`` and ``noise`` and the variance
     head's ``var_t`` and ``var_noise`` are drawn from ``generator`` unless
-    given (the masks first: pitch, then the curves in order)."""
+    given (the masks first: pitch, then the curves in order).  Under
+    ``shard=(rank, world)`` (a rank of a data-parallel group) the draws are
+    the global batch's rows of this rank, and the word-duration term divides
+    by the largest ``ph2word`` over every rank (one collective)."""
     retakes = dict(retakes or {})
     out: Dict[str, torch.Tensor] = {}
     tokens = batch["tokens"]
@@ -142,12 +151,13 @@ def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor
                                          ph_dur=batch["ph_dur"], spk_id=spk_id, infer=False)
     if dur_pred is not None:
         dur_args = cfg.get("dur_prediction_args", {})
+        word_max = None if shard is None else all_reduce_max(batch["ph2word"].max())
         out["dur_loss"] = cfg.get("lambda_dur_loss", 1.0) * losses.duration_loss(
             dur_pred.float(), batch["ph_dur"], batch["ph2word"],
             offset=dur_args.get("log_offset", 1.0), loss_type=dur_args.get("loss_type", "mse"),
             lambda_pdur=dur_args.get("lambda_pdur_loss", 0.3),
             lambda_wdur=dur_args.get("lambda_wdur_loss", 1.0),
-            lambda_sdur=dur_args.get("lambda_sdur_loss", 3.0))
+            lambda_sdur=dur_args.get("lambda_sdur_loss", 3.0), word_max=word_max)
     if not predict_pitch and not names:
         return out
     mel2ph = batch["mel2ph"]
@@ -156,7 +166,8 @@ def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor
     condition = model.frame_condition(encoder_out, mel2ph, spk_id=spk_id)
     for name in (["pitch"] if predict_pitch else []) + list(names):
         if name not in retakes:
-            retakes[name] = random_retake_masks(b, t_frames, generator, mel2ph.device)
+            retakes[name] = random_retake_masks(b, t_frames, generator, mel2ph.device,
+                                                shard=shard)
     if predict_pitch:
         retake = retakes["pitch"]
         pitch_cond = model.pitch_condition(
@@ -170,7 +181,7 @@ def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor
         out["pitch_loss"] = cfg.get("lambda_pitch_loss", 1.0) * diffusion_branch(
             core, cfg, lambda x, tt: model.denoise_pitch(x, tt, pitch_cond),
             normalizers["pitch"].norm(delta), non_padding, generator, t=t, noise=noise,
-            log_norm_default=True)
+            log_norm_default=True, shard=shard)
     if names:
         var_cond = model.variance_condition(condition, batch["pitch"],
                                             {v: batch[v] for v in names},
@@ -178,7 +189,7 @@ def variance_losses(model, core, normalizers, cfg, batch: Dict[str, torch.Tensor
         out["var_loss"] = cfg.get("lambda_var_loss", 1.0) * diffusion_branch(
             core, cfg, lambda x, tt: model.denoise_variance(x, tt, var_cond),
             normalizers["variances"].norm([batch[v] for v in names]), non_padding, generator,
-            t=var_t, noise=var_noise, log_norm_default=True)
+            t=var_t, noise=var_noise, log_norm_default=True, shard=shard)
     return out
 
 
