@@ -265,6 +265,15 @@ Phases, each printed on its own line:
      experiments and sets made afresh (for a machine of several cards: (a)
      under NCCL across all of them, (c) over all of them); it prints no
      kernels line.
+ 19. (after phase 5d, before phase 6) the alignment ops of ``ops/seq.py``
+     on ``cuda:0`` at the sample ``.ds``'s sizes: its segments as one
+     padded batch of durations, rounded from ``ph_dur`` as the acoustic
+     runner rounds them.  ``length_regulator`` without ``alpha`` and at
+     ``alpha`` 0.5 and 1.5 (products on .5 ties), ``mel2ph_to_dur`` without
+     ``max_dur`` and clipped below the longest count, and
+     ``stretch_regulator``, each on card tensors against the same call on
+     the CPU: the integer outputs equal, ``stretch_regulator`` within 1e-6;
+     without ``max_dur`` the counts must give back the durations.
 
 Phase 5d (after phase 5c, so ``--kernels-only`` covers it) holds K6
 ``resblock_unit`` against its plain version on the folded stage-2 unit with
@@ -4131,6 +4140,76 @@ def run_dp_serving(lynx_runner, wavenet_runner, work: Path, name_limit: str) -> 
     return total
 
 
+def check_seq_ops(name_limit: str) -> None:
+    """Phase 19: the three alignment ops of ``ops/seq.py`` on ``cuda:0``
+    against the CPU at the sample ``.ds``'s sizes."""
+    import numpy as np
+    import torch
+
+    from xiaoicesing_io_tpu_torch.config import acoustic_defaults
+    from xiaoicesing_io_tpu_torch.inference.acoustic import load_ds
+    from xiaoicesing_io_tpu_torch.ops import seq
+
+    t0 = time.perf_counter()
+    cfg = acoustic_defaults()
+    timestep = cfg.hop_size / cfg.audio_sample_rate
+    rows = []
+    for seg in load_ds(ROOT / SAMPLE):
+        ph_dur = np.array(seg["ph_dur"].split(), np.float32)
+        ph_acc = np.round(np.cumsum(ph_dur) / timestep + 0.5).astype(np.int64)
+        rows.append(np.diff(ph_acc, prepend=0))
+    dur = np.zeros((len(rows), max(map(len, rows))), np.int64)
+    for i, row in enumerate(rows):
+        dur[i, :len(row)] = row
+    B, t_txt = dur.shape
+    frames = int(dur.sum(1).max())
+    card_dev = torch.device("cuda:0")
+
+    def both(fn, *args, **kw):
+        """``fn`` on the CPU and on the card (its arrays as tensors there);
+        the card's output on the CPU."""
+        def on(device):
+            return [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray) else a
+                    for a in args]
+
+        ref = fn(*on("cpu"), **kw)
+        got = fn(*on(card_dev), **kw)
+        if got.device != card_dev or got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"[seq ops] {fn.__name__}{kw}: the card gave {got.dtype} "
+                                 f"{tuple(got.shape)} on {got.device}, the CPU {ref.dtype} "
+                                 f"{tuple(ref.shape)}")
+        return got.cpu(), ref
+
+    def equal(what, got, ref):
+        if not torch.equal(got, ref):
+            n = int((got != ref).sum())
+            raise AssertionError(f"[seq ops] {what}: {n} elements differ from the CPU's")
+
+    mel2ph = None
+    for alpha in (None, 0.5, 1.5):
+        out_len = frames if alpha is None else int(round(frames * alpha)) + 8
+        got, ref = both(seq.length_regulator, dur, out_len, alpha=alpha)
+        equal(f"length_regulator(alpha={alpha})", got, ref)
+        if alpha is None:
+            mel2ph = ref.numpy()
+    longest = int(dur.max())
+    for max_dur in (None, longest - 2):
+        got, ref = both(seq.mel2ph_to_dur, mel2ph, t_txt, max_dur=max_dur)
+        equal(f"mel2ph_to_dur(max_dur={max_dur})", got, ref)
+        if max_dur is None and not np.array_equal(got.numpy(), dur):
+            raise AssertionError("[seq ops] mel2ph_to_dur does not give back the durations")
+    got, ref = both(seq.stretch_regulator, mel2ph, dur)
+    err = float((got - ref).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"[seq ops] stretch_regulator: max |card - CPU| {err:.3e} > 1e-6")
+    torch.cuda.synchronize()
+    log(f"[seq ops] {SAMPLE}: B={B} segments, {t_txt} tokens, {frames} frames; "
+        f"length_regulator (alpha None, 0.5, 1.5) and mel2ph_to_dur (max_dur None, {longest - 2})"
+        f" equal to the CPU's, stretch_regulator max |card - CPU| {err:.3e} (<= 1e-6); "
+        f"{name_limit}")
+    log(f"[done 19] {time.perf_counter() - t0:.1f}s")
+
+
 def run_bench() -> None:
     """Phase 11: the bench end to end, ``python -m xiaoicesing_io_tpu_torch.bench
     --runs 1`` (every cell of ``BENCHMARK.json`` and the WaveNet margin line)
@@ -4201,6 +4280,7 @@ def main(argv) -> int:
     if "--kernels-only" in argv:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f}s")
         return 0
+    check_seq_ops(name_limit)
 
     work = ROOT / ".work" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)

@@ -427,3 +427,13 @@ def test_entry_points_raise_without_cuda(vocoder_dir, mel_npz, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["vocode", str(mel_npz[1]), "--config", config, "--out", str(tmp_path)])
     assert not (tmp_path / "out").exists()
+
+
+def test_val_vocoder_takes_the_jax_command_name():
+    """click names the JAX package's command ``val-vocoder``; the port's
+    parser takes that spelling beside ``val_vocoder``."""
+    from xiaoicesing_io_tpu_torch import cli
+
+    for name in ("val_vocoder", "val-vocoder"):
+        args = cli.build_parser().parse_args([name, "a.wav", "--config", "c.yaml"])
+        assert args.func is cli.val_vocoder and args.wavs == ["a.wav"]

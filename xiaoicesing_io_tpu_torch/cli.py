@@ -472,7 +472,8 @@ def build_parser() -> argparse.ArgumentParser:
     va.add_argument("--device", default=None, help="torch device (default: cuda)")
     va.set_defaults(func=infer_variance)
 
-    vv = sub.add_parser("val_vocoder", help="Vocoder copy-synthesis evaluation on wav files")
+    vv = sub.add_parser("val_vocoder", aliases=["val-vocoder"],
+                        help="Vocoder copy-synthesis evaluation on wav files")
     vv.add_argument("wavs", nargs="+", help="wav files")
     vv.add_argument("--config", required=True, help="configuration (names vocoder_ckpt)")
     vv.add_argument("--out", default="copysyn_out", help="output directory")

@@ -19,7 +19,7 @@ import ast
 import json
 import os
 from pathlib import Path
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Iterable, Mapping, Optional, Union
 
 PathLike = Union[str, os.PathLike]
 
@@ -38,6 +38,15 @@ class Config(dict):
     def __setattr__(self, name: str, value: Any) -> None:
         self[name] = value
 
+    def copy(self) -> "Config":
+        """A copy whose nested dicts are copied at every level; lists are
+        shared."""
+        return Config({k: (v.copy() if isinstance(v, dict) else v) for k, v in self.items()})
+
+    def subset(self, keys: Iterable[str]) -> "Config":
+        """The entries of ``keys`` that the config has."""
+        return Config({k: self[k] for k in keys if k in self})
+
     def save(self, path: PathLike) -> None:
         """Write the config as YAML (``config.yaml`` of a work dir)."""
         import yaml
@@ -46,6 +55,10 @@ class Config(dict):
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, "w", encoding="utf-8") as f:
             yaml.safe_dump(_plain(self), f, sort_keys=True, allow_unicode=True)
+
+    @staticmethod
+    def from_yaml(path: PathLike) -> "Config":
+        return load_config(path)
 
 
 def _plain(obj: Any) -> Any:

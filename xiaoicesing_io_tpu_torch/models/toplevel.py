@@ -77,6 +77,10 @@ class AcousticModel(nn.Module):
         self.aux_decoder = aux_decoder
 
     @property
+    def category(self) -> str:
+        return "acoustic"
+
+    @property
     def backbone(self) -> nn.Module:
         return self.diffusion.net
 
@@ -169,6 +173,10 @@ class VarianceModel(nn.Module):
             self.variance_embeds = nn.ModuleDict(
                 {v: nn.Linear(1, H) for v in self.variance_prediction_list})
             self.variance_predictor = _Diffusion(variance_backbone, variance_diffusion_type)
+
+    @property
+    def category(self) -> str:
+        return "variance"
 
     @property
     def predict_variances(self) -> bool:

@@ -3,8 +3,10 @@
 from __future__ import annotations
 
 import contextlib
+import importlib
 import inspect
 import os
+import re
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -17,6 +19,17 @@ def filter_kwargs(kwargs: Dict[str, Any], fn: Callable) -> Dict[str, Any]:
     if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values()):
         return dict(kwargs)
     return {k: v for k, v in kwargs.items() if k in sig.parameters}
+
+
+def build_object_from_class_name(cls_path: str, base_cls=None, *args, **kwargs):
+    """Instantiate the class at the dotted path ``pkg.mod.Class`` with the
+    kwargs its ``__init__`` accepts; raises ``TypeError`` when ``base_cls``
+    is given and the class is not its subclass."""
+    mod_name, cls_name = cls_path.rsplit(".", 1)
+    cls = getattr(importlib.import_module(mod_name), cls_name)
+    if base_cls is not None and not issubclass(cls, base_cls):
+        raise TypeError(f"{cls_path} is not a subclass of {base_cls}")
+    return cls(*args, **filter_kwargs(kwargs, cls.__init__))
 
 
 def fresh_seed() -> int:
@@ -113,6 +126,15 @@ def collate_nd(arrays: Sequence[np.ndarray], pad_value=0, max_len: Optional[int]
     return out
 
 
+def random_continuous_masks(B: int, T: int, rng: np.random.Generator) -> np.ndarray:
+    """bool ``[B, T]``, True on one random span ``[start, end)`` per row
+    (two sorted cut points drawn from ``rng``; the span may be empty)."""
+    ends = rng.integers(0, T + 1, size=(B, 2))
+    ends.sort(axis=1)
+    idx = np.arange(T)[None, :]
+    return (idx >= ends[:, :1]) & (idx < ends[:, 1:])
+
+
 def batch_by_size(indices: Sequence[int], num_frames_fn: Callable[[int], int],
                   max_batch_frames: int = 80000, max_batch_size: int = 48) -> List[List[int]]:
     """Group dataset indices, in the given order, into batches capped by
@@ -136,3 +158,12 @@ def batch_by_size(indices: Sequence[int], num_frames_fn: Callable[[int], int],
     if cur:
         batches.append(cur)
     return batches
+
+
+_CKPT_STEP = re.compile(r"model_ckpt_steps_(\d+)")
+
+
+def parse_ckpt_step(name: str) -> Optional[int]:
+    """The step in a name holding ``model_ckpt_steps_<N>``, else None."""
+    m = _CKPT_STEP.search(str(name))
+    return int(m.group(1)) if m else None

@@ -1,7 +1,7 @@
 """Validation figures and audio for TensorBoard (counterpart of the JAX
-package's ``utils/plot.py``): the mel triptych (|error| / GT / prediction),
-curves, duration alignment, pitch against notes, audio through a writer,
-and the binarizers' distribution bar chart.  matplotlib and tensorboardX
+package's ``utils/plot.py``): a spectrogram, the mel triptych (|error| / GT
+/ prediction), curves, duration alignment, pitch against notes, audio
+through a writer, and the binarizers' distribution bar chart.  matplotlib and tensorboardX
 are imported when first used; :func:`figures_available` says up front
 whether matplotlib is installed.
 """
@@ -36,6 +36,17 @@ def distribution_to_figure(title, x_label, y_label, items, values, zoom=0.8):
     plt.xlabel(x_label)
     plt.ylabel(y_label)
     plt.title(title)
+    return fig
+
+
+def spec_to_figure(spec, vmin=None, vmax=None, title=None):
+    """``spec`` ``[T, M]`` as a pcolor image, frames along x."""
+    plt = _plt()
+    fig = plt.figure(figsize=(12, 6))
+    plt.pcolor(np.asarray(spec).T, vmin=vmin, vmax=vmax)
+    if title:
+        plt.title(title)
+    plt.tight_layout()
     return fig
 
 
